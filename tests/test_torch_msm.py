@@ -1,0 +1,123 @@
+"""Port MSM (polymath_tpu_torch.ops.msm) against the host Pippenger
+(hostmath G1.msm) and the native g1_msm (itself held against G1.msm in the
+first test), on the CPU through the kernels' plain versions: identities,
+zero scalars, duplicate bases (the safe form and the fast-mode collision
+flag), the peeled host tail, bases longer than the scalars, Montgomery
+scalars and deferred results."""
+
+import random
+
+import pytest
+import torch
+
+from polymath_tpu_torch.hostmath import bls12_381 as bls
+from polymath_tpu_torch.hostmath.bls12_381 import R
+from polymath_tpu_torch.native import g1_msm
+from polymath_tpu_torch.ops import msm as M
+from polymath_tpu_torch.ops.curve import points_to_device
+from polymath_tpu_torch.ops.limbs import FR_SPEC, ints_to_words
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain PyTorch ops here are small: one intra-op thread is as fast
+    and leaves the other cores to parallel test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rows(points):
+    return points_to_device(points).T.contiguous()
+
+
+def _scalars(values, mont=False):
+    if mont:
+        values = [FR_SPEC.to_mont_int(v % R) for v in values]
+    return torch.from_numpy(ints_to_words(values, FR_SPEC.L))
+
+
+def _distinct_points(n, seed):
+    rng = random.Random(seed)
+    cur = bls.G1.mul(bls.G1.gen, rng.randrange(1, R))
+    step = bls.G1.mul(bls.G1.gen, rng.randrange(1, R))
+    pts = []
+    for _ in range(n):
+        pts.append(cur)
+        cur = bls.G1.add(cur, step)
+    return pts
+
+
+@pytest.fixture(scope="module")
+def points():
+    return _distinct_points(80, 21)
+
+
+def test_window_and_chunk_schedule():
+    assert M.window_params(1 << 19) == (13, 20)
+    assert M.scan_seq(1 << 19) == 256
+    assert M.choose_chunk(100) == 128 and M.choose_chunk(1) == 2
+    assert M.choose_chunk(1 << 22) == M.DEFAULT_CHUNK
+    for chunk in (2, 64, 4096, 1 << 19):
+        c, w = M.window_params(chunk)
+        assert c * w >= 255 and c * (w - 1) < 255
+
+
+def test_msm_matches_host_with_identities_and_zero_scalars(points):
+    rng = random.Random(5)
+    pts = list(points[:40])
+    pts[3] = None
+    pts[17] = None
+    sc = [rng.randrange(R) for _ in pts]
+    sc[5] = 0
+    sc[6] = 1
+    sc[7] = R - 1
+    want = bls.G1.msm(pts, sc)
+    assert want == g1_msm(pts, sc)
+    # more points than scalars: both take the zipped pairs only
+    assert g1_msm(pts, sc[:7]) == bls.G1.msm(pts, sc[:7])
+    assert M.msm_device(_rows(pts), _scalars(sc)) == want
+    # Montgomery scalars, a deferred result, and an explicit small chunk
+    pend = M.msm_device(_rows(pts), _scalars(sc, mont=True), mont=True,
+                        defer=True, chunk=16)
+    assert isinstance(pend, M.MsmPending)
+    assert pend.result() == want
+
+
+def test_msm_tail_peel_and_long_bases(points):
+    """m = k*chunk + t with 0 < t <= 64 peels the tail to the host; bases
+    longer than the scalars take zero scalars (msm.py tail split)."""
+    rng = random.Random(31)
+    chunk = 16
+    n = 2 * chunk + 11
+    pts = list(points[:n])
+    pts[-3] = None                    # identity inside the host tail
+    sc = [rng.randrange(R) for _ in range(n)]
+    sc[-1] = 0                        # zero scalar inside the host tail
+    rows = _rows(pts)
+    assert M.msm_device(rows, _scalars(sc), chunk=chunk) == \
+        g1_msm(pts, sc)
+    short = sc[:n - 20]
+    assert M.msm_device(rows, _scalars(short), chunk=chunk) == \
+        g1_msm(pts[:n - 20], short)
+    assert M.msm_device(rows, _scalars(sc), n_eff=9) == \
+        g1_msm(pts[:9], sc[:9])
+
+
+def test_msm_duplicate_bases_safe_and_fast_flag(points):
+    """Repeated bases: the safe form doubles where a bucket's partial sum
+    meets its own base; the fast form raises on the collision flag (the
+    prover then reruns safe)."""
+    base = points[:8]
+    pts = (base * 6)[:45]
+    rng = random.Random(7)
+    sc = [rng.randrange(R) for _ in pts]
+    want = g1_msm(pts, sc)
+    assert M.msm_device(_rows(pts), _scalars(sc)) == want
+    p = points[0]
+    with pytest.raises(AssertionError, match="collision"):
+        M.msm_device(_rows([p, p]), _scalars([5, 5]), fast=True)
+    assert M.msm_device(_rows([p, p]), _scalars([5, 5])) == \
+        g1_msm([p, p], [5, 5])
+    assert M.msm_device(_rows([p]), _scalars([0])) is None
