@@ -8,12 +8,12 @@ Phases, each printing what it found:
 1. device: the card's name and power limit; builds every CUDA source of
    polymath_tpu_torch/csrc with nvcc into build/ (one nvcc per source, all
    at once) and prints the build time and each kernel's ptxas report;
-2. kernels: every kernel of the main path against its plain PyTorch
-   version on the same inputs on the card, bit for bit (0 mismatches
-   allowed): first at moderate shapes that hold the edge cases (field edge
-   values, the degenerate point cases), then at the main path's shapes,
-   where the kernel's time, its plain version's time and its bound are
-   taken;
+2. kernels: every kernel (B1-B9 and the port-only to_affine) against its
+   plain PyTorch version on the same inputs on the card, bit for bit (0
+   mismatches allowed): first at moderate shapes that hold the edge cases
+   (field edge values, the degenerate point cases, dead and colliding MSM
+   leaves), then at the main path's shapes, where the kernel's time, its
+   plain version's time and its bound are taken;
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
    setup and prove on the card, for all three transcripts, against
    tests/fixtures/golden_dummy.json;
@@ -21,7 +21,17 @@ Phases, each printing what it found:
    bench.py), Merlin, seed 0: setup, a warm prove, a second prove, a
    verify of each and a rejected wrong public input, with per-phase times,
    peak device memory and each kernel's launch count (B1-B6 > 0 in a
-   prove, the port-only to_affine > 0 in setup).
+   prove, the port-only to_affine > 0 in setup);
+4b. the fused-scan configuration (POLYMATH_MSM_FUSED=1) of the main path:
+   with the phase-4 key, four proves in turns (split, fused, fused,
+   split), each from a fresh Rng(7): the proofs must be byte-equal and
+   verify, a wrong public input must be rejected, and each fused prove
+   must launch fused_scan (B7) once per MSM chunk and no jac_madd or
+   gather_rows.  Per-phase times, peak device memory and launches of each.
+
+B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
+phase 2 holds them against their plain versions and times them; their
+launch counts on the main path are 0.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -61,12 +71,21 @@ ADD_OPS = 11 * FQ_MUL_OPS + 5 * FQ_SQR_OPS         # add-2007-bl
 # g1.cu's Fermat inversion: 384 squarings, popcount(q - 2) = 229 products,
 # then zinv^2 and three products
 TO_AFFINE_OPS = 385 * FQ_SQR_OPS + (229 + 3) * FQ_MUL_OPS
+DOUBLE_OPS = 2 * FQ_MUL_OPS + 5 * FQ_SQR_OPS       # dbl-2009-l
+BFLY_OPS = FR_MUL_OPS                              # one product a pair
 
 
-#: B1-B6, which every prove launches, and the port-only setup kernel
+#: B1-B6, which every (split) prove launches, the kernel that replaces the
+#: gather and madd in the fused configuration, the two kernels no path of
+#: the reference calls, and the port-only setup kernel
 PROVE_KERNELS = ("fr_mul", "fr_sqr", "jac_madd", "gather_rows", "jac_add",
                  "ntt_local")
+SPLIT_ONLY = ("jac_madd", "gather_rows")
+FUSED_KERNELS = ("fused_scan",)
+UNCALLED_KERNELS = ("jac_double", "fr_butterfly")
 SETUP_KERNELS = ("to_affine",)
+ALL_KERNELS = PROVE_KERNELS + FUSED_KERNELS + UNCALLED_KERNELS + \
+    SETUP_KERNELS
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -99,8 +118,12 @@ def cuda_ms(fn, reps: int):
 
 def compare(name: str, got, want) -> int:
     """Largest |got - want| over the words, read as unsigned 32-bit
-    integers; raises if any lane differs (the kernels are exact)."""
+    integers; raises if any lane differs (the kernels are exact).  Tuples
+    (a kernel's several outputs) compare item by item."""
     import torch
+    if isinstance(got, tuple):
+        return max(compare(f"{name}[{i}]", g, w)
+                   for i, (g, w) in enumerate(zip(got, want, strict=True)))
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
@@ -169,6 +192,61 @@ def point_inputs(dev, n: int):
     return acc.to(dev), leaf.to(dev), q.to(dev)
 
 
+def scan_inputs(dev, seq: int = 16, windows: int = 4, rows: int = 256):
+    """A fused-scan table of k G (k = 1..1024), then -5G and -9G (T = 1026
+    rows), and step-major (seq, windows, rows) leaf indices, random but for
+    the planted lanes (index T is a dead leaf): 0 all dead; 1 G, 2G, 3G
+    (the leaf equals the running sum, Z != 1); 2 5G, 5G (a duplicate base,
+    Z = 1); 3 5G, -5G (P + (-P)), then 7G; 4 9G, -9G, 9G, 9G (a collision
+    after the identity); 5 live with every fourth leaf dead."""
+    import torch
+    from polymath_tpu_torch.hostmath import bls12_381 as bls
+    from polymath_tpu_torch.ops import curve as C
+    pts = host_points(1024)
+    pts += [bls.G1.neg(pts[4]), bls.G1.neg(pts[8])]
+    table = C.points_to_device(pts).T.contiguous()
+    t = table.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    idx = torch.randint(0, t + 1, (seq, windows * rows), generator=g)
+    idx[:, 0] = t
+    idx[:3, 1] = torch.tensor([0, 1, 2])
+    idx[:2, 2] = torch.tensor([4, 4])
+    idx[:3, 3] = torch.tensor([4, t - 2, 6])
+    idx[:4, 4] = torch.tensor([8, t - 1, 8, 8])
+    idx[::4, 5] = t
+    return table.to(dev), idx.reshape(seq, windows, rows).to(dev)
+
+
+def chunk_inputs(dev):
+    """One d-MSM chunk as the prover feeds the fused scan: a table of the
+    2^19 distinct points k G (k = 1..2^19, formed on the card from 4096
+    host points and 128 offsets), random canonical scalars, and their
+    bucket order at c = 13: idx (256, 20, 2048)."""
+    import torch
+    from polymath_tpu_torch.hostmath import bls12_381 as bls
+    from polymath_tpu_torch.ops import curve as C
+    from polymath_tpu_torch.ops import cuda_curve
+    from polymath_tpu_torch.ops import msm as M
+    chunk = M.DEFAULT_CHUNK
+    base = host_points(4096)
+    step, offs = bls.G1.mul(bls.G1.gen, 4096), [None]
+    for _ in range(chunk // 4096 - 1):
+        offs.append(bls.G1.add(offs[-1], step))
+    bj = C.affine_to_jac_words(C.points_to_device(base).to(dev))
+    oj = C.affine_to_jac_words(C.points_to_device(offs).to(dev))
+    pts = cuda_curve.jac_add(bj[:, :, None], oj[:, None, :])
+    table = cuda_curve.to_affine(pts).reshape(C.AFF, chunk).T.contiguous()
+    g = torch.Generator(device="cpu").manual_seed(13)
+    sc = torch.randint(-2**31, 2**31, (8, chunk), generator=g,
+                       dtype=torch.int64)
+    # top word below p's (0x73eda753): every scalar is canonical
+    sc[7] = torch.randint(0, 0x73eda753, (chunk,), generator=g)
+    c, windows = M.window_params(chunk)
+    idx, _ = M.bucket_order(sc.to(torch.int32).to(dev), chunk, c, windows,
+                            M.scan_seq(chunk))
+    return table, idx
+
+
 # -- phase 2: the plain versions -------------------------------------------
 
 def plain_fr_mul(a, b):
@@ -195,6 +273,19 @@ def plain_madd(p, leaf, fast):
     return C.join_words(r), e
 
 
+def plain_double(p):
+    from polymath_tpu_torch.ops import curve as C
+    return C.join_words(C.jac_double_core(C.split_words(p, 3)))
+
+
+def plain_butterfly(lo, hi, tw):
+    from polymath_tpu_torch.ops.field import FR
+    from polymath_tpu_torch.ops.limbs import limbs_to_words, words_to_limbs
+    lo_l = words_to_limbs(lo)
+    t = FR.mont_mul(words_to_limbs(hi), words_to_limbs(tw))
+    return limbs_to_words(FR.add(lo_l, t)), limbs_to_words(FR.sub(lo_l, t))
+
+
 def plain_to_affine(p):
     from polymath_tpu_torch.ops import curve as C
     return C.join_words(C.jac_to_affine_core(C.split_words(p, 3)))
@@ -211,10 +302,12 @@ def check_kernels(dev) -> dict:
     """Every kernel against its plain version on the card at moderate
     shapes that hold the edge cases: 2^16 field elements with 0, 1, p - 1
     and p - 2; 2^12 points with the identity on either side, a (0, 0)
-    leaf, P + P and P + (-P); a (16, 64, 2048) batch of local NTTs.
+    leaf, P + P and P + (-P); a (16, 64, 2048) batch of local NTTs; a
+    (16, 4, 256) fused scan with the lanes of scan_inputs.
     Raises on any difference; returns {kernel: largest word error}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
+    from polymath_tpu_torch.ops import cuda_scan
     from polymath_tpu_torch.ops import ntt as N
 
     errs = {}
@@ -230,6 +323,10 @@ def check_kernels(dev) -> dict:
     note("fr_sqr", "fr_sqr", cuda_field.fr_sqr(a), plain_fr_sqr(a))
     note("fr_sqr", "fr_sqr == fr_mul(a, a)", cuda_field.fr_sqr(a),
          cuda_field.fr_mul(a, a))
+    c = a.roll(3, 1).contiguous()
+    for what, tw in (("", c), (" broadcast", c[:, 2:3])):
+        note("fr_butterfly", "fr_butterfly" + what,
+             cuda_field.fr_butterfly(a, b, tw), plain_butterfly(a, b, tw))
 
     acc, leaf, q = point_inputs(dev, 1 << 12)
     for fast in (False, True):
@@ -243,6 +340,22 @@ def check_kernels(dev) -> dict:
     note("jac_add", "jac_add", cuda_curve.jac_add(acc, q), plain_add(acc, q))
     note("to_affine", "to_affine", cuda_curve.to_affine(acc),
          plain_to_affine(acc))
+    # identity lanes whose X and Y are not 1: Z = 0 under a finite point
+    dbl_in = acc.clone()
+    dbl_in[24:, 7:11] = 0
+    note("jac_double", "jac_double", cuda_curve.jac_double(dbl_in),
+         plain_double(dbl_in))
+
+    table_s, idx_s = scan_inputs(dev)
+    for fast in (False, True):
+        got, gerr = cuda_scan.fused_scan_msm(table_s, idx_s, fast)
+        want, werr = cuda_scan.fused_scan_msm_plain(table_s, idx_s, fast)
+        note("fused_scan", f"fused_scan fast={fast}", got, want)
+        if fast:
+            note("fused_scan", "fused_scan flag", gerr, werr)
+            if not all(bool(werr[i]) for i in (1, 2, 4)):
+                raise AssertionError("fast fused scan did not flag the "
+                                     "planted collisions")
 
     table = torch.cat([leaf.T, acc[:24].T]).contiguous()   # (8192, 24)
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -266,6 +379,7 @@ def measure_kernels(dev, errs: dict) -> dict:
     {kernel: the JSON entry without launches}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
+    from polymath_tpu_torch.ops import cuda_scan
     from polymath_tpu_torch.ops import ntt as N
 
     out = {}
@@ -300,7 +414,15 @@ def measure_kernels(dev, errs: dict) -> dict:
           "polymath_tpu/ops/pallas_field.py:43", "(8, 2^22)",
           lambda: cuda_field.fr_sqr(big), lambda: plain_fr_sqr(big), 20,
           2 * 32 * n, FR_SQR_OPS * n)
-    del big, big2
+    # one radix-2 stage of the 2^22-point transform: 2^21 pairs
+    half = n // 2
+    lo, hi, tw = big[:, :half], big2[:, :half], big2[:, half:]
+    entry("fr_butterfly", "polymath_tpu_torch/csrc/field.cu",
+          "polymath_tpu/ops/pallas_field.py:28", "(8, 2^21) pairs",
+          lambda: cuda_field.fr_butterfly(lo, hi, tw),
+          lambda: plain_butterfly(lo, hi, tw), 20, 5 * 32 * half,
+          BFLY_OPS * half)
+    del big, big2, lo, hi, tw
 
     # the MSM scan step: 20 windows x 2048 rows of one 2^19-point chunk
     acc, leaf, q = point_inputs(dev, 1 << 12)
@@ -326,6 +448,12 @@ def measure_kernels(dev, errs: dict) -> dict:
           lambda: plain_add(acc_l, q_l), 10, 36 * 3 * 4 * lanes,
           ADD_OPS * live)
     del q_l
+    # no early return: every lane, the identity ones too, does the work
+    entry("jac_double", "polymath_tpu_torch/csrc/g1.cu",
+          "polymath_tpu/ops/pallas_curve.py:41", "(2^20 lanes)",
+          lambda: cuda_curve.jac_double(acc_l),
+          lambda: plain_double(acc_l), 10, 36 * 2 * 4 * lanes,
+          DOUBLE_OPS * lanes)
     entry("to_affine", "polymath_tpu_torch/csrc/g1.cu",
           "polymath_tpu/ops/fixed_base.py:95", "(2^20 lanes)",
           lambda: cuda_curve.to_affine(acc_l),
@@ -350,6 +478,22 @@ def measure_kernels(dev, errs: dict) -> dict:
           lambda: cuda_gather.gather_rows_plain(table_l, idx_l), 10,
           chunk * 96 + m * (8 + 96), 0)
     del table_l, idx_l
+
+    # the same chunk through the fused scan, fast as the prover runs it, on
+    # the bucket order of random scalars over 2^19 distinct points.  Work:
+    # every live leaf after a lane's first is one full madd.
+    table_c, idx_c = chunk_inputs(dev)
+    seq, lanes = idx_c.shape[0], idx_c[0].numel()
+    live = (idx_c < table_c.shape[0]).reshape(seq, lanes).sum(0)
+    madds = int((live - 1).clamp(min=0).sum())
+    entry("fused_scan", "polymath_tpu_torch/csrc/scan.cu",
+          "polymath_tpu/ops/pallas_scan.py:64",
+          "(2^19, 24) table, (256, 20, 2048) idx",
+          lambda: cuda_scan.fused_scan_msm(table_c, idx_c, True),
+          lambda: cuda_scan.fused_scan_msm_plain(table_c, idx_c, True), 5,
+          table_c.numel() * 4 + idx_c.numel() * 8
+          + 36 * 4 * idx_c.numel() + 4 * lanes, MADD_OPS * madds)
+    del table_c, idx_c
 
     # the 2^22-point NTT's batch of 2048 transforms of 2048
     x = field_inputs(dev, 1 << 12, 6).repeat(1, 32).reshape(8, 64, 2048)
@@ -391,19 +535,21 @@ def golden(dev) -> None:
 
 # -- phase 4 -------------------------------------------------------------------
 
-def launches() -> dict:
+def _counted_modules():
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import ntt
+    from polymath_tpu_torch.ops import cuda_scan, ntt
+    return (cuda_field, cuda_curve, cuda_gather, cuda_scan, ntt)
+
+
+def launches() -> dict:
     out = {}
-    for mod in (cuda_field, cuda_curve, cuda_gather, ntt):
+    for mod in _counted_modules():
         out.update(mod.LAUNCHES)
     return out
 
 
 def reset_launches() -> None:
-    from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import ntt
-    for mod in (cuda_field, cuda_curve, cuda_gather, ntt):
+    for mod in _counted_modules():
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
 
@@ -472,7 +618,83 @@ def main_path(dev, num_constraints: int) -> dict:
                              f"{missing}")
     return {"launches": total, "per_prove": per_prove, "setup_s": setup_s,
             "warm_prove_s": warm_s, "prove_s": prove_s,
-            "verify_ms": verify_s * 1e3, "peak_bytes": peak, "n": vk.n}
+            "verify_ms": verify_s * 1e3, "peak_bytes": peak, "n": vk.n,
+            "pm": pm, "pk": pk, "vk": vk, "circuit": circuit,
+            "public": a * b % R}
+
+
+# -- phase 4b ------------------------------------------------------------------
+
+def fused_path(run: dict) -> list:
+    """The fused-scan configuration with the phase-4 key: split and fused
+    proves in turns (split, fused, fused, split), each from a fresh
+    Rng(7), must give the same proof bytes; each prove's launches,
+    per-phase times and peak device memory (peak reset before it) are
+    recorded.  Returns one dict per prove, in order."""
+    import torch
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.protocol import Rng
+    from polymath_tpu_torch.utils import timers
+
+    pm, pk, vk = run["pm"], run["pk"], run["vk"]
+    saved = os.environ.get("POLYMATH_MSM_FUSED")
+    turns = []
+    try:
+        for label in ("split", "fused", "fused", "split"):
+            os.environ["POLYMATH_MSM_FUSED"] = "1" if label == "fused" \
+                else "0"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.time()
+            proof = pm.prove(pk, run["circuit"](), Rng(7))
+            torch.cuda.synchronize()
+            turns.append({
+                "label": label, "proof": proof,
+                "prove_s": time.time() - t0, "launches": launches(),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "phases": {k: v for k, v in timers.TIMES.items()
+                           if k.startswith("prover::")}})
+    finally:
+        if saved is None:
+            os.environ.pop("POLYMATH_MSM_FUSED", None)
+        else:
+            os.environ["POLYMATH_MSM_FUSED"] = saved
+    for i, r in enumerate(turns):
+        print(f"  turn {i + 1} {r['label']}: prove {r['prove_s']:.3f} s, "
+              f"peak {r['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{json.dumps(r['launches'])}", flush=True)
+        for k, v in sorted(r["phases"].items()):
+            print(f"    turn {i + 1} {r['label']} {k}: {v:.3f} s")
+    want = turns[0]["proof"].to_bytes()
+    for r in turns:
+        if r["proof"].to_bytes() != want:
+            raise AssertionError("fused and split proofs differ")
+        if not pm.verify(vk, [run["public"]], r["proof"]):
+            raise AssertionError(f"{r['label']} proof rejected")
+    if pm.verify(vk, [(run["public"] + 1) % R], turns[1]["proof"]):
+        raise AssertionError("a wrong public input was accepted (fused)")
+    split = turns[0]["launches"]
+    for r in turns:
+        fl = r["launches"]
+        if r["label"] == "split":
+            if fl != split or fl["fused_scan"]:
+                raise AssertionError(f"split prove launched {fl}")
+            continue
+        if fl["fused_scan"] == 0 or any(fl[k] for k in SPLIT_ONLY):
+            raise AssertionError(f"fused prove launched {fl}")
+        if fl["fused_scan"] != split["gather_rows"]:
+            raise AssertionError(f"fused_scan launches {fl['fused_scan']} "
+                                 f"!= split gather_rows "
+                                 f"{split['gather_rows']}")
+        missing = [k for k in PROVE_KERNELS + FUSED_KERNELS
+                   if k not in SPLIT_ONLY and fl[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the fused "
+                                 f"path: {missing}")
+    print("  proofs byte-equal, all verify, wrong public input rejected",
+          flush=True)
+    return turns
 
 
 def main() -> int:
@@ -537,11 +759,26 @@ def main() -> int:
           f"{run['peak_bytes'] / 2**30:.2f} GiB, n = {run['n']}; "
           f"launches per prove {json.dumps(run['per_prove'])}", flush=True)
 
+    # 4b. the fused-scan configuration of the main path
+    print("[4b] fused-scan configuration (POLYMATH_MSM_FUSED=1), phase-4 "
+          "key, Rng(7): proves split, fused, fused, split", flush=True)
+    fused = fused_path(run)[1]
+    print(f"[4b] fused prove {fused['prove_s']:.2f} s, peak "
+          f"{fused['peak_bytes'] / 2**30:.2f} GiB, fused_scan launches "
+          f"{fused['launches']['fused_scan']}", flush=True)
+
     kernels = []
-    for name in PROVE_KERNELS + SETUP_KERNELS:
+    for name in ALL_KERNELS:
         k = dict(numbers[name])
-        k["launches"] = run["launches"][name]
-        k["launches_per_prove"] = run["per_prove"][name]
+        if name in FUSED_KERNELS:
+            k["launches"] = k["launches_per_prove"] = \
+                fused["launches"][name]
+            k["path"] = "fused-scan configuration (phase 4b)"
+        else:
+            k["launches"] = run["launches"][name]
+            k["launches_per_prove"] = run["per_prove"][name]
+        if name in UNCALLED_KERNELS:
+            k["note"] = "no path of the reference calls this kernel"
         kernels.append(k)
     print(f"[5] total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-// Elementwise Fr Montgomery product and square on (8, M) 32-bit words.
+// Elementwise Fr Montgomery product, square and radix-2 butterfly on
+// (8, M) 32-bit words.
 //
-// Replaces polymath_tpu/ops/pallas_field.py:_mul_kernel (B1) and
-// _sqr_kernel (B2).  The TPU kernels tile (16, 8, 256) blocks of 16-bit
+// Replaces polymath_tpu/ops/pallas_field.py:_mul_kernel (B1),
+// _sqr_kernel (B2) and _bfly_kernel (B9).  The TPU kernels tile (16, 8, 256) blocks of 16-bit
 // limbs because the TPU has no 64-bit multiplier; on Hopper each thread
 // owns one element and runs 8x32-bit CIOS (mul) or SOS (sqr) with
 // 32x32->64 products.
@@ -36,6 +37,23 @@ __global__ void fr_sqr_kernel(const uint32_t* a, long a_stride,
   fe_store<FrP>(out, out_stride, i, fe_sqr<FrP>(x));
 }
 
+// (lo + tw hi, lo - tw hi).  Bound on the H100: memory, as fr_mul: 160
+// bytes a pair (three elements in, two out) against one product.
+__global__ void fr_bfly_kernel(const uint32_t* lo, long lo_stride,
+                               long lo_step, const uint32_t* hi,
+                               long hi_stride, long hi_step,
+                               const uint32_t* tw, long tw_stride,
+                               long tw_step, uint32_t* out_lo,
+                               uint32_t* out_hi, long out_stride, long m) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  Fe<FrP> a = fe_load<FrP>(lo, lo_stride, i * lo_step);
+  Fe<FrP> t = fe_mul<FrP>(fe_load<FrP>(hi, hi_stride, i * hi_step),
+                          fe_load<FrP>(tw, tw_stride, i * tw_step));
+  fe_store<FrP>(out_lo, out_stride, i, fe_add<FrP>(a, t));
+  fe_store<FrP>(out_hi, out_stride, i, fe_sub<FrP>(a, t));
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long m) {
@@ -59,5 +77,18 @@ extern "C" int pm_fr_sqr(const void* a, long a_stride, void* out,
   if (m > 0)
     fr_sqr_kernel<<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)a, a_stride, (uint32_t*)out, out_stride, m);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pm_fr_butterfly(const void* lo, long lo_stride, long lo_step,
+                               const void* hi, long hi_stride, long hi_step,
+                               const void* tw, long tw_stride, long tw_step,
+                               void* out_lo, void* out_hi, long out_stride,
+                               long m, void* stream) {
+  if (m > 0)
+    fr_bfly_kernel<<<blocks_for(m), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)lo, lo_stride, lo_step, (const uint32_t*)hi,
+        hi_stride, hi_step, (const uint32_t*)tw, tw_stride, tw_step,
+        (uint32_t*)out_lo, (uint32_t*)out_hi, out_stride, m);
   return (int)cudaGetLastError();
 }

@@ -19,7 +19,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("field", "g1", "ntt")
+SOURCES = ("field", "g1", "scan", "ntt")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -43,7 +43,8 @@ def _stale(name: str) -> bool:
     so = _so(name)
     if not os.path.exists(so):
         return True
-    deps = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "fields.cuh")]
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
     return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 

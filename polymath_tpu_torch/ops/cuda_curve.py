@@ -1,5 +1,5 @@
-"""G1 point kernels (counterpart of pallas_curve.py) plus the port-only
-Jacobian -> affine kernel.
+"""G1 point kernels (counterpart of pallas_curve.py: add, mixed add,
+doubling) plus the port-only Jacobian -> affine kernel.
 
 Points are word tensors (curve.py): Jacobian ``(36, ...)``, affine
 ``(24, ...)``, int32.  On CUDA tensors the wrappers launch
@@ -14,12 +14,12 @@ import torch
 
 from . import _build
 from .curve import (
-    AFF, JAC, jac_add_core, jac_madd_core, jac_to_affine_core, join_words,
-    split_words,
+    AFF, JAC, jac_add_core, jac_double_core, jac_madd_core,
+    jac_to_affine_core, join_words, split_words,
 )
 
 #: launches per kernel since the last reset (read by chip_smoke.py)
-LAUNCHES = {"jac_add": 0, "jac_madd": 0, "to_affine": 0}
+LAUNCHES = {"jac_add": 0, "jac_madd": 0, "jac_double": 0, "to_affine": 0}
 
 
 def _lanes(t: torch.Tensor, K: int, what: str) -> torch.Tensor:
@@ -94,6 +94,23 @@ def jac_madd(p: torch.Tensor, leaf: torch.Tensor, fast: bool = False,
                     _build.stream(o2)), "jac_madd")
     LAUNCHES["jac_madd"] += 1
     return out, (err if fast else None)
+
+
+def jac_double(p: torch.Tensor) -> torch.Tensor:
+    """dbl-2009-l on (36, ...) Jacobian words.  The identity (Z = 0)
+    doubles to Z = 0 with the formula's X and Y, as jac_double_core."""
+    if p.shape[0] != JAC:
+        raise ValueError(f"jac_double: expected {JAC} words, got {p.shape}")
+    if p.device.type == "cpu":
+        return join_words(jac_double_core(split_words(p, 3)))
+    m = math.prod(p.shape[1:])
+    p2 = _lanes(p, JAC, "jac_double")
+    out = torch.empty((JAC, m), dtype=torch.int32, device=p.device)
+    fn = _build.declare(_build.lib("g1").pm_g1_double, 6)
+    _build.check(fn(p2.data_ptr(), p2.stride(0), out.data_ptr(), m, m,
+                    _build.stream(out)), "jac_double")
+    LAUNCHES["jac_double"] += 1
+    return out.reshape(p.shape)
 
 
 def to_affine(p: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""Fr Montgomery product and square kernels (counterpart of pallas_field.py).
+"""Fr Montgomery product, square and butterfly kernels (counterpart of
+pallas_field.py).
 
-``fr_mul`` and ``fr_sqr`` take ``(8, ...)`` int32 Fr words (limbs.py).  On
-a CUDA tensor they launch ``csrc/field.cu``; on a CPU tensor they run the
-plain version (``field.FR`` on 16-bit limbs).  There is no size threshold
+``fr_mul``, ``fr_sqr`` and ``fr_butterfly`` take ``(8, ...)`` int32 Fr
+words (limbs.py).  On a CUDA tensor they launch ``csrc/field.cu``; on a
+CPU tensor they run the plain version (``field.FR`` on 16-bit limbs).  There is no size threshold
 and no fallback: a CUDA launch that fails raises.
 """
 
@@ -19,7 +20,7 @@ from .limbs import FR_SPEC, limbs_to_words, words_to_limbs
 W = FR_SPEC.W
 
 #: launches per kernel since the last reset (read by chip_smoke.py)
-LAUNCHES = {"fr_mul": 0, "fr_sqr": 0}
+LAUNCHES = {"fr_mul": 0, "fr_sqr": 0, "fr_butterfly": 0}
 
 
 def _check_dtype(*ts):
@@ -66,3 +67,29 @@ def fr_sqr(a: torch.Tensor) -> torch.Tensor:
                     _build.stream(out)), "fr_sqr")
     LAUNCHES["fr_sqr"] += 1
     return out.reshape(a.shape)
+
+
+def fr_butterfly(lo: torch.Tensor, hi: torch.Tensor, tw: torch.Tensor):
+    """Radix-2 butterfly (lo + tw*hi, lo - tw*hi) of broadcastable (8, ...)
+    Fr words; a one-element ``tw`` is read once for the whole batch."""
+    _check_dtype(lo, hi, tw)
+    shape = torch.broadcast_shapes(lo.shape, hi.shape, tw.shape)
+    if shape[0] != W:
+        raise ValueError(f"Fr words need a leading axis of {W}: {shape}")
+    devs = {lo.device, hi.device, tw.device}
+    if devs == {torch.device("cpu")}:
+        lo_l = words_to_limbs(lo)
+        t = FR.mont_mul(words_to_limbs(hi), words_to_limbs(tw))
+        return (limbs_to_words(FR.add(lo_l, t)),
+                limbs_to_words(FR.sub(lo_l, t)))
+    if len(devs) != 1 or lo.device.type != "cuda":
+        raise ValueError(f"fr_butterfly operands on {sorted(map(str, devs))}")
+    m = math.prod(shape[1:])
+    ops = [_build.operand(t, shape, "fr_butterfly") for t in (lo, hi, tw)]
+    out = torch.empty((2, W, m), dtype=torch.int32, device=lo.device)
+    args = [v for t2, step in ops for v in (t2.data_ptr(), t2.stride(0), step)]
+    fn = _build.declare(_build.lib("field").pm_fr_butterfly, 14)
+    _build.check(fn(*args, out[0].data_ptr(), out[1].data_ptr(), m, m,
+                    _build.stream(out)), "fr_butterfly")
+    LAUNCHES["fr_butterfly"] += 1
+    return out[0].reshape(shape), out[1].reshape(shape)

@@ -16,6 +16,14 @@ window w of c-bit digits:
      formed only at the 2^c threshold positions (one ``jac_add`` each) and
      the thresholds fold by pairwise halving.
 
+The fused configuration (``fused=True``, or ``POLYMATH_MSM_FUSED`` set to
+``1``/``on``/``true`` when ``fused`` is None, as the reference's
+``msm.py:_fused_mode``) replaces steps 2 and 3 with one launch of the
+``fused_scan`` kernel per chunk (ops/cuda_scan.py), which reads each leaf
+straight from the table and never writes the gathered leaves.  Its
+outputs are the split pair's, word for word.  The default is the
+reference's: the split scan.
+
 The work per chunk is the same whatever the digit distribution: a digit
 repeated across the whole chunk (BenchCircuit's c_w vector) costs what
 random digits cost.  Window sums add across chunks on the card; the final
@@ -35,12 +43,15 @@ on the card; ``.result()`` waits for them.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ..hostmath import bls12_381 as bls
 from .cuda_curve import jac_add, jac_madd
 from .cuda_gather import gather_rows
+from .cuda_scan import fused_scan_msm
 from .curve import (
     AFF, FW, JAC, jac_identity_words, jac_to_host,
     prefix_scan_jac, tree_sum_jac,
@@ -79,18 +90,24 @@ def choose_chunk(m: int) -> int:
     return min(DEFAULT_CHUNK, 1 << max(m - 1, 1).bit_length())
 
 
-def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
-              c: int, windows: int, fast: bool):
-    """One chunk: table (t, 24) affine rows (t <= chunk), scalars (8, chunk)
-    canonical words (zero past t) -> ((36, windows) window sums, err)."""
-    dev = scalars.device
-    n = chunk
-    t = table.shape[0]
-    seq = scan_seq(n)
+def fused_mode() -> bool:
+    """The fused-scan configuration is asked for (reference:
+    msm.py:_fused_mode, read at each call)."""
+    return os.environ.get("POLYMATH_MSM_FUSED", "") in ("1", "on", "true")
+
+
+def bucket_order(scalars: torch.Tensor, t: int, c: int, windows: int,
+                 seq: int):
+    """Step 1 of the module docstring for one chunk: scalars (8, n)
+    canonical words, t live table rows.  Returns (idx, d_sorted): idx
+    (seq, windows, n // seq) int64 step-major leaf indices (sorted
+    position k = r*seq + s at [s, w, r]; dead leaves read row t) and the
+    (windows, n) digits in descending order."""
+    n = scalars.shape[1]
     rows = n // seq
     digits = fr_window_digits(scalars, c, windows)            # (W, n)
     shift = (n - 1).bit_length()
-    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    iota = torch.arange(n, dtype=torch.int64, device=scalars.device)
     skey = torch.sort((digits << shift) | iota, dim=-1,
                       descending=True).values
     d_sorted = skey >> shift
@@ -99,17 +116,33 @@ def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
     # step-major layout: sorted position k = r*seq + s lives at [s, w, r],
     # so each scan step reads and writes one contiguous (W*rows) slab
     idx = idx.reshape(windows, rows, seq).permute(2, 0, 1)
-    leaves = gather_rows(table, idx)                      # (24, seq, W, rows)
+    return idx, d_sorted
+
+
+def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
+              c: int, windows: int, fast: bool, fused: bool = False):
+    """One chunk: table (t, 24) affine rows (t <= chunk), scalars (8, chunk)
+    canonical words (zero past t) -> ((36, windows) window sums, err).
+    ``fused`` runs steps 2-3 as one fused_scan launch."""
+    dev = scalars.device
+    n = chunk
+    seq = scan_seq(n)
+    rows = n // seq
+    idx, d_sorted = bucket_order(scalars, table.shape[0], c, windows, seq)
     lanes = windows * rows
     local = torch.empty((JAC, seq, windows, rows), dtype=torch.int32,
                         device=dev)
     err = torch.zeros((lanes,), dtype=torch.int32, device=dev) if fast \
         else None
-    acc = jac_identity_words((lanes,), dev)
-    for s in range(seq):
-        acc, _ = jac_madd(acc, leaves[:, s].reshape(AFF, lanes), fast,
-                          out=local[:, s].reshape(JAC, lanes), err=err)
-    del leaves
+    if fused:
+        fused_scan_msm(table, idx, fast, out=local, err=err)
+    else:
+        leaves = gather_rows(table, idx)                  # (24, seq, W, rows)
+        acc = jac_identity_words((lanes,), dev)
+        for s in range(seq):
+            acc, _ = jac_madd(acc, leaves[:, s].reshape(AFF, lanes), fast,
+                              out=local[:, s].reshape(JAC, lanes), err=err)
+        del leaves
     # per-window counts of digits >= t for t = 1..2^c by binary search in
     # the ascending sorted digits; threshold 2^c is dead (count 0) and
     # only rounds the fold's width to a power of two
@@ -189,10 +222,15 @@ class MsmPending:
 def msm_device(bases: torch.Tensor, scalars: torch.Tensor,
                chunk: int | None = None, fast: bool = False,
                mont: bool = False, n_eff: int | None = None,
-               defer: bool = False):
+               defer: bool = False, fused: bool | None = None):
     """MSM of (N, 24) affine base rows with (8, M) Fr scalar words ->
     host affine point (``None`` is the identity), or ``MsmPending`` with
     ``defer=True``.
+
+    ``fused`` selects the fused-scan configuration; None reads
+    ``POLYMATH_MSM_FUSED`` now (default off).  Unlike the reference
+    (msm.py:522-523) it needs no shape condition: the fused kernel takes
+    every chunk the split scan takes.
 
     Only the first ``n_eff`` (default N) bases take part; when M is smaller
     the remaining bases get zero scalars, so callers pass short per-proof
@@ -219,6 +257,8 @@ def msm_device(bases: torch.Tensor, scalars: torch.Tensor,
         sc = sc[:, :m]
     n_chunks = (m + chunk - 1) // chunk
     c, windows = window_params(chunk)
+    if fused is None:
+        fused = fused_mode()
     dev = scalars.device
     acc = None
     err = None
@@ -230,7 +270,7 @@ def msm_device(bases: torch.Tensor, scalars: torch.Tensor,
                 (sc.shape[0], chunk - (hi - lo)), dtype=sc.dtype,
                 device=dev)], dim=1)
         part, e = msm_chunk(bases[lo:hi], sc_k.contiguous(), chunk, c,
-                            windows, fast)
+                            windows, fast, fused)
         acc = part if acc is None else jac_add(acc, part)
         if fast:
             err = e if err is None else (err | e)

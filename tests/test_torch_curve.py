@@ -163,3 +163,24 @@ def test_gather_rows_plain_contract():
     with pytest.raises(TypeError):
         cuda_gather.gather_rows(table, idx.to(torch.int32))
     assert cuda_gather.LAUNCHES["gather_rows"] == 0
+
+
+def test_jac_double_matches_reference_and_host(batch):
+    """cuda_curve.jac_double (plain path on the CPU) against the reference's
+    curve_jax.jac_double and the host group law.  Identity lanes double to
+    Z = 0 with the formula's X and Y: one with X = Y = 1, one whose X and Y
+    are those of a finite point."""
+    acc, _, q, acc_host, _, _ = batch
+    p = torch.cat([acc, q[:, 6:8]], dim=1)
+    p[2 * FW:, -1] = 0
+    host = acc_host + [acc_host[6], None]
+    got = cuda_curve.jac_double(p)
+    want = CJ.jac_double(_jax(p, 3))
+    assert torch.equal(got, _words(want))
+    assert C.jac_to_host(got) == [bls.G1.double(h) if h else None
+                                  for h in host]
+    assert not got[2 * FW:, 0].any() and not got[2 * FW:, -1].any()
+    assert got[:2 * FW, -1].any()
+    assert torch.equal(cuda_curve.jac_double(p.reshape(JAC, 2, -1)),
+                       got.reshape(JAC, 2, -1))
+    assert cuda_curve.LAUNCHES["jac_double"] == 0

@@ -213,3 +213,33 @@ def test_wrappers_check_their_operands():
         cuda_field.fr_sqr(a.to(torch.int64))
     with pytest.raises(ValueError):
         cuda_field.fr_mul(a[:6], a[:6])
+
+
+def test_butterfly_matches_reference():
+    """cuda_field.fr_butterfly (plain path on the CPU) against the
+    reference's pallas_field.fr_butterfly (its plain branch below 256
+    lanes), with the edge values on every side and a broadcast twiddle;
+    and against Python ints."""
+    from polymath_tpu.ops import pallas_field as PF
+    p = FR_SPEC.modulus
+    vlo, vhi = _values(FR_SPEC, 28, 13), _values(FR_SPEC, 28, 14)[::-1]
+    vtw = _values(FR_SPEC, 28, 15)
+    lo, hi, tw = (_mont(FR_SPEC, v) for v in (vlo, vhi, vtw))
+    for name, t, tv in [("full", tw, vtw), ("broadcast", tw[:, -2:-1],
+                                          [vtw[-2]] * len(vtw))]:
+        want = PF.fr_butterfly(jnp.asarray(lo), jnp.asarray(hi),
+                               jnp.asarray(t))
+        got = cuda_field.fr_butterfly(limbs_to_words(_port(lo)),
+                                      limbs_to_words(_port(hi)),
+                                      limbs_to_words(_port(t)))
+        for g, w in zip(got, want):
+            assert g.shape == (8, len(vlo)), name
+            np.testing.assert_array_equal(
+                _ref(w), words_to_limbs(g).numpy(), err_msg=name)
+        ints = [[FR_SPEC.from_mont_int(v) for v in words_to_ints(g.numpy())]
+                for g in got]
+        assert ints[0] == [(a + b * c) % p for a, b, c in zip(vlo, vhi, tv)]
+        assert ints[1] == [(a - b * c) % p for a, b, c in zip(vlo, vhi, tv)]
+    assert cuda_field.LAUNCHES["fr_butterfly"] == 0
+    with pytest.raises(TypeError):
+        cuda_field.fr_butterfly(_port(lo), _port(hi), _port(tw))  # limbs
