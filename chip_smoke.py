@@ -7,7 +7,10 @@ Phases, each printing what it found:
 
 1. device: the card's name and power limit; builds every CUDA source of
    polymath_tpu_torch/csrc with nvcc into build/ (one nvcc per source, all
-   at once) and prints the build time and each kernel's ptxas report;
+   at once) and prints the build time and each kernel's ptxas report,
+   failing on any spill in any source (the report is read from the file
+   each build leaves beside its library, so a cached build is checked
+   too);
 2. kernels: every kernel (B1-B9 and the port-only to_affine) against its
    plain PyTorch version on the same inputs on the card, bit for bit (0
    mismatches allowed): first at moderate shapes that hold the edge cases
@@ -27,11 +30,23 @@ Phases, each printing what it found:
    split), each from a fresh Rng(7): the proofs must be byte-equal and
    verify, a wrong public input must be rejected, and each fused prove
    must launch fused_scan (B7) once per MSM chunk and no jac_madd or
-   gather_rows.  Per-phase times, peak device memory and launches of each.
+   gather_rows.  Per-phase times, peak device memory and launches of each;
+5. measurement entry points (polymath_tpu_torch/tools), each through its
+   main() at its default size: primbench (T2: nine chains of 512
+   dependent steps over 2^17 elements, on the tool's constant input and a
+   seeded random one, against the plain versions bit for bit but for the
+   fused f32 b * a + a row at rtol 1e-4, and every instantiation keeping
+   at least 512 of its row's instructions in the SASS),
+   pgather_variants (T1: six gather layouts of 22 x 2^18 rows from a 2^18
+   -point table, bit for bit), kernel_metrics (NTT at 2^20 and 2^22, MSM
+   at 2^20 with its host-oracle check) and fusedprof (each stage of one
+   2^19-point MSM chunk, composed back to msm_chunk's window sums, split
+   and fused).  Every T1 and T2 kernel must have launched in this phase.
 
 B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
 phase 2 holds them against their plain versions and times them; their
-launch counts on the main path are 0.
+launch counts on the main path are 0.  T1 and T2 are timed, compared and
+counted by phase 5.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -39,10 +54,14 @@ limit as nvidia-smi prints them, and as the last line
 exits non-zero without that line.  It also exits non-zero, printing no
 result, when no CUDA card is visible or the package is missing.
 
-Bounds: bytes each input read once and each output written once, at
-3.35e12 B/s; or 32-bit integer multiply-adds at 16.7e12/s (64 INT32 lanes
-per SM, half the fp32 lanes behind the 67 TFLOP/s fp32 peak, x 132 SMs x
-1.98 GHz), counting a 32x32->64-bit product as two; the larger of the two.
+Bounds (polymath_tpu_torch.tools.bound_ms, which holds the card's rates
+for this script and every tool): bytes each input read once and each
+output written once, at 3.35e12 B/s; or 32-bit integer multiply-adds at
+16.7e12/s (64 INT32 lanes per SM, half the fp32 lanes behind the 67
+TFLOP/s fp32 peak, x 132 SMs x 1.98 GHz), counting a 32x32->64-bit
+product as two; the larger of the two.  T2's rows count one operation a
+step (two for the masked multiply and the shift+xor), its f32 rows at
+33.5e12 fp32 instructions/s; T1 is bound by its bytes.
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -58,8 +78,6 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-MEM_RATE = 3.35e12          # bytes/s, H100 SXM HBM3
-INT_MUL_RATE = 16.7e12      # 32-bit integer multiply-adds/s, H100 SXM
 # 32-bit multiply-adds per operation (CIOS / SOS with 32-bit words; a
 # wide product counts two, each reduction digit one)
 FR_MUL_OPS = 2 * (64 + 64) + 8
@@ -88,11 +106,6 @@ ALL_KERNELS = PROVE_KERNELS + FUSED_KERNELS + UNCALLED_KERNELS + \
     SETUP_KERNELS
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_b, t_o = nbytes / MEM_RATE, ops / INT_MUL_RATE
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
-
-
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -101,19 +114,21 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int):
-    """(last result, mean ms of one call) of ``fn`` on the card, by CUDA
-    events around ``reps`` calls."""
-    import torch
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        res = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return res, start.elapsed_time(end) / reps
+def check_ptxas(names) -> None:
+    """Prints each source's ptxas report (registers and spills of every
+    kernel), read from the file its build left beside the library, so a
+    library built by an earlier run is checked too; raises if a report
+    lists no kernel or any spill."""
+    from polymath_tpu_torch.ops import _build
+    for name in names:
+        report = _build.ptxas_report(name)
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"    {name}.cu: {line.strip()}")
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill",
+                            report)
+        if not spills or any(a != "0" or b != "0" for a, b in spills):
+            raise AssertionError(f"{name}.cu: ptxas reports spills {spills}")
 
 
 def compare(name: str, got, want) -> int:
@@ -381,26 +396,37 @@ def measure_kernels(dev, errs: dict) -> dict:
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
     from polymath_tpu_torch.ops import cuda_scan
     from polymath_tpu_torch.ops import ntt as N
+    from polymath_tpu_torch.tools import bound_ms, timed_ms
 
     out = {}
 
     def entry(name, source, replaces, shape, kernel, plain, reps, nbytes,
-              ops):
+              ops, library=None):
         # the plain version runs once (it is slow and no yardstick of
-        # speed); the kernel is warmed up, then timed over ``reps`` calls
-        want, plain_ms = cuda_ms(plain, 1)
+        # speed); the kernel is warmed up, then timed over ``reps`` calls;
+        # ``library``, one PyTorch call for the same function, likewise
+        want, plain_ms = timed_ms(plain, dev)
         kernel()
-        got, kern_ms = cuda_ms(kernel, reps)
+        got, kern_ms = timed_ms(kernel, dev, reps)
         err = compare(name, got, want)
-        del got, want
+        del got
+        lib_ms = None
+        if library is not None:
+            library()
+            got, lib_ms = timed_ms(library, dev, reps)
+            compare(f"{name} library call", got.reshape(want.shape), want)
+            del got
+        del want
         b, by = bound_ms(nbytes, ops)
         out[name] = {"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "shape": shape,
                      "max_abs_err": max(err, errs[name]), "ms": kern_ms,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                     "library_ms": None}
+                     "library_ms": lib_ms}
+        lib = "" if lib_ms is None else f"  library {lib_ms:8.4f} ms"
         print(f"  {name:12s} {shape:>30s}  kernel {kern_ms:9.4f} ms  plain "
-              f"{plain_ms:10.3f} ms  bound {b:8.4f} ms ({by})", flush=True)
+              f"{plain_ms:10.3f} ms  bound {b:8.4f} ms ({by}){lib}",
+              flush=True)
 
     # the prover's widest Fr vectors: 2n = 2^22 elements
     big = field_inputs(dev, 1 << 12, 3).repeat(1, 1 << 10)
@@ -471,13 +497,18 @@ def measure_kernels(dev, errs: dict) -> dict:
     g = torch.Generator(device="cpu").manual_seed(7)
     idx_l = torch.randint(0, chunk + 1, (256, 20, 2048), generator=g).to(dev)
     m = idx_l.numel()
+    # the library call: index_select on the table with its zero row (index
+    # T), then the transpose to limb-major
+    table_z = torch.cat([table_l, table_l.new_zeros((1, 24))])
+    idx_f = idx_l.reshape(-1)
     entry("gather_rows", "polymath_tpu_torch/csrc/g1.cu",
           "polymath_tpu/ops/pallas_gather.py:47",
           "(2^19, 24) table, 20 x 2^19 rows",
           lambda: cuda_gather.gather_rows(table_l, idx_l),
           lambda: cuda_gather.gather_rows_plain(table_l, idx_l), 10,
-          chunk * 96 + m * (8 + 96), 0)
-    del table_l, idx_l
+          chunk * 96 + m * (8 + 96), 0,
+          library=lambda: table_z.index_select(0, idx_f).T.contiguous())
+    del table_l, idx_l, table_z, idx_f
 
     # the same chunk through the fused scan, fast as the prover runs it, on
     # the bucket order of random scalars over 2^19 distinct points.  Work:
@@ -535,21 +566,26 @@ def golden(dev) -> None:
 
 # -- phase 4 -------------------------------------------------------------------
 
-def _counted_modules():
+def _counted_modules(tools: bool = False):
+    """The kernel wrappers with a LAUNCHES counter: the prover's (B1-B9,
+    to_affine), or with ``tools`` the measurement tools' (T1, T2)."""
+    if tools:
+        from polymath_tpu_torch.tools import pgather_variants, primbench
+        return (primbench, pgather_variants)
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
     from polymath_tpu_torch.ops import cuda_scan, ntt
     return (cuda_field, cuda_curve, cuda_gather, cuda_scan, ntt)
 
 
-def launches() -> dict:
+def launches(tools: bool = False) -> dict:
     out = {}
-    for mod in _counted_modules():
+    for mod in _counted_modules(tools):
         out.update(mod.LAUNCHES)
     return out
 
 
 def reset_launches() -> None:
-    for mod in _counted_modules():
+    for mod in _counted_modules() + _counted_modules(tools=True):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
 
@@ -697,6 +733,61 @@ def fused_path(run: dict) -> list:
     return turns
 
 
+# -- phase 5 -------------------------------------------------------------------
+
+T1_SOURCE = "polymath_tpu_torch/csrc/gather_variants.cu"
+T1_REPLACES = "tools/pgather_variants.py:19"
+T2_SOURCE = "polymath_tpu_torch/csrc/primbench.cu"
+T2_REPLACES = "tools/primbench.py:38"
+
+
+def measurement_path() -> dict:
+    """The measurement entry points through their main(), at their default
+    sizes, with the launch counts set to 0 just before and read just after.
+    Each tool raises on a mismatch with its plain version or its oracle.
+    Returns the tools' results, the launches, and the T1/T2 entries of the
+    kernels line."""
+    from polymath_tpu_torch.tools import (
+        fusedprof, kernel_metrics, pgather_variants, primbench)
+    reset_launches()
+    pb = primbench.main([])
+    gv = pgather_variants.main([])
+    km = kernel_metrics.main([])
+    fp = fusedprof.main([])
+    counts = launches(tools=True)
+    never = [k for k, v in counts.items() if v == 0]
+    if never:
+        raise AssertionError(f"kernels never launched in phase 5: {never}")
+    if not fp["stages_match"] or not km["msm_oracle_check"].startswith("ok"):
+        raise AssertionError("phase 5: a tool's own check did not pass")
+    entries = []
+    for r in pb["rows"]:
+        name = f"primbench:{r['name']}"
+        entries.append({
+            "name": name, "route": "cuda", "source": T2_SOURCE,
+            "replaces": T2_REPLACES, "shape": "(512, 256), K = 512",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "launches": counts[name], "compared": r["compared"],
+            "ps_per_op": r["ps_per_op"],
+            "sass_step_instructions": pb["sass"][r["name"]]["count"],
+            "path": "measurement entry points (phase 5)"})
+    for v in gv["variants"]:
+        name = f"pgather_variants:{v['name']}"
+        entries.append({
+            "name": name, "route": "cuda", "source": T1_SOURCE,
+            "replaces": T1_REPLACES,
+            "shape": f"({gv['t4']}, 128) quads -> (24, {gv['m']})",
+            "max_abs_err": v["max_abs_err"], "ms": v["ms"],
+            "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+            "launches": counts[name], "ns_per_row": v["ns_per_row"],
+            "path": "measurement entry points (phase 5)"})
+    return {"primbench": pb, "pgather_variants": gv, "kernel_metrics": km,
+            "fusedprof": fp, "launches": counts, "entries": entries}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--constraints", type=int, default=(1 << 20) - 100)
@@ -733,10 +824,7 @@ def main() -> int:
     print(f"[1] built {sorted(built)} in {build_s:.1f} s "
           f"(per source {json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
-    for name, (_, log) in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"    {name}.cu: {line.strip()}")
+    check_ptxas(_build.SOURCES)
 
     # 2. kernels against their plain versions
     print("[2] kernels against plain versions (0 mismatches required):",
@@ -767,6 +855,26 @@ def main() -> int:
           f"{fused['peak_bytes'] / 2**30:.2f} GiB, fused_scan launches "
           f"{fused['launches']['fused_scan']}", flush=True)
 
+    # 5. the measurement entry points
+    print("[5] measurement entry points: primbench (T2), pgather_variants "
+          "(T1), kernel_metrics, fusedprof", flush=True)
+    t0 = time.time()
+    meas = measurement_path()
+    km, fp = meas["kernel_metrics"], meas["fusedprof"]
+    sass = {k: v["count"] for k, v in meas["primbench"]["sass"].items()}
+    rates = [f"{k} steady {v['steady_s'] * 1e3:.3f} ms, "
+             + (f"{v['elems_per_s']:.4g} elements/s" if "elems_per_s" in v
+                else f"{v['points_per_s']:.4g} points/s")
+             for k, v in km["kernels"].items()]
+    print(f"[5] T1/T2 launches {json.dumps(meas['launches'])}; SASS step "
+          f"instructions {json.dumps(sass)}", flush=True)
+    print(f"[5] kernel_metrics: {'; '.join(rates)}; "
+          f"{km['msm_oracle_check']}", flush=True)
+    print(f"[5] fusedprof chunk {fp['chunk']}: stages "
+          f"{json.dumps(fp['stages_ms'])}; sum split "
+          f"{fp['split_sum_ms']:.3f} ms, fused {fp['fused_sum_ms']:.3f} ms; "
+          f"phase 5 took {time.time() - t0:.1f} s", flush=True)
+
     kernels = []
     for name in ALL_KERNELS:
         k = dict(numbers[name])
@@ -780,7 +888,8 @@ def main() -> int:
         if name in UNCALLED_KERNELS:
             k["note"] = "no path of the reference calls this kernel"
         kernels.append(k)
-    print(f"[5] total {time.time() - t_start:.1f} s", flush=True)
+    kernels += meas["entries"]
+    print(f"[6] total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles on its own into ``build/lib<name>.so`` at
 first use, with a plain C interface (no PyTorch headers, so a build takes
 seconds).  ``build_all()`` starts one ``nvcc`` per source at once; a
-library is rebuilt only when it is older than its sources.  Nothing here
-runs at import time: this module is imported on machines without nvcc.
+library is rebuilt only when it is older than its sources or its ptxas
+report (``build/lib<name>.ptxas.txt``, kept beside it) is missing.
+Nothing here runs at import time: this module is imported on machines
+without nvcc.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("field", "g1", "scan", "ntt")
+SOURCES = ("field", "g1", "scan", "ntt", "primbench", "gather_variants")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -29,19 +31,33 @@ _libs: dict = {}
 build_log: dict = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(tool: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump): under CUDA_HOME
+    (/usr/local/cuda by default), else on PATH."""
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    return cand if os.path.exists(cand) else "nvcc"
+                        "bin", tool)
+    return cand if os.path.exists(cand) else tool
 
 
-def _so(name: str) -> str:
+def library_path(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}.so")
 
 
+def report_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's output (ptxas -v: registers and spills of every kernel) from
+    the build of the current ``build/lib<name>.so``, whichever process made
+    it."""
+    with open(report_path(name)) as f:
+        return f.read()
+
+
 def _stale(name: str) -> bool:
-    so = _so(name)
-    if not os.path.exists(so):
+    so = library_path(name)
+    if not os.path.exists(so) or not os.path.exists(report_path(name)):
         return True
     deps = [os.path.join(CSRC, f"{name}.cu")] + [
         os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
@@ -50,8 +66,8 @@ def _stale(name: str) -> bool:
 
 def _start(name: str):
     os.makedirs(BUILD, exist_ok=True)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", _so(name),
-                                    os.path.join(CSRC, f"{name}.cu")]
+    cmd = [cuda_tool("nvcc")] + NVCC_FLAGS + [
+        "-o", library_path(name), os.path.join(CSRC, f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -65,6 +81,9 @@ def build_all(names=SOURCES) -> dict:
     def finish(n, p):
         out, _ = p.communicate()
         build_log[n] = (time.time() - t0, out)
+        if p.returncode == 0:
+            with open(report_path(n), "w") as f:
+                f.write(out)
 
     waits = [threading.Thread(target=finish, args=item)
              for item in procs.items()]
@@ -85,7 +104,7 @@ def lib(name: str) -> ctypes.CDLL:
         if name not in _libs:
             if _stale(name):
                 build_all((name,))
-            _libs[name] = ctypes.CDLL(_so(name))
+            _libs[name] = ctypes.CDLL(library_path(name))
         return _libs[name]
 
 

@@ -103,11 +103,16 @@ def bucket_order(scalars: torch.Tensor, t: int, c: int, windows: int,
     (seq, windows, n // seq) int64 step-major leaf indices (sorted
     position k = r*seq + s at [s, w, r]; dead leaves read row t) and the
     (windows, n) digits in descending order."""
-    n = scalars.shape[1]
+    return sort_digits(fr_window_digits(scalars, c, windows), t, seq)
+
+
+def sort_digits(digits: torch.Tensor, t: int, seq: int):
+    """The sort of ``bucket_order``: (windows, n) int64 digits -> (idx,
+    d_sorted)."""
+    windows, n = digits.shape
     rows = n // seq
-    digits = fr_window_digits(scalars, c, windows)            # (W, n)
     shift = (n - 1).bit_length()
-    iota = torch.arange(n, dtype=torch.int64, device=scalars.device)
+    iota = torch.arange(n, dtype=torch.int64, device=digits.device)
     skey = torch.sort((digits << shift) | iota, dim=-1,
                       descending=True).values
     d_sorted = skey >> shift
@@ -119,33 +124,48 @@ def bucket_order(scalars: torch.Tensor, t: int, c: int, windows: int,
     return idx, d_sorted
 
 
-def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
-              c: int, windows: int, fast: bool, fused: bool = False):
-    """One chunk: table (t, 24) affine rows (t <= chunk), scalars (8, chunk)
-    canonical words (zero past t) -> ((36, windows) window sums, err).
-    ``fused`` runs steps 2-3 as one fused_scan launch."""
-    dev = scalars.device
-    n = chunk
-    seq = scan_seq(n)
-    rows = n // seq
-    idx, d_sorted = bucket_order(scalars, table.shape[0], c, windows, seq)
-    lanes = windows * rows
-    local = torch.empty((JAC, seq, windows, rows), dtype=torch.int32,
-                        device=dev)
-    err = torch.zeros((lanes,), dtype=torch.int32, device=dev) if fast \
-        else None
+def madd_scan(leaves: torch.Tensor, fast: bool, out: torch.Tensor,
+              err: torch.Tensor | None) -> torch.Tensor:
+    """Step 3 of the split scan: gathered leaves (24, seq, ...) -> every
+    local prefix in ``out`` (36, seq, ...), ``seq`` launches of
+    ``jac_madd`` over all lanes; the fast form ORs its flag into ``err``."""
+    seq = leaves.shape[1]
+    lanes = leaves[0, 0].numel()
+    acc = jac_identity_words((lanes,), leaves.device)
+    for s in range(seq):
+        acc, _ = jac_madd(acc, leaves[:, s].reshape(AFF, lanes), fast,
+                          out=out[:, s].reshape(JAC, lanes), err=err)
+    return out
+
+
+def scan_local(table: torch.Tensor, idx: torch.Tensor, fast: bool,
+               fused: bool):
+    """Steps 2-3 for one chunk: idx (seq, windows, rows) from
+    ``bucket_order`` -> (local (36, seq, windows, rows) Jacobian prefixes,
+    err (lanes,) int32 or None).  ``fused`` runs them as one fused_scan
+    launch, else ``gather_rows`` then ``madd_scan``."""
+    lanes = idx[0].numel()
+    local = torch.empty((JAC,) + tuple(idx.shape), dtype=torch.int32,
+                        device=idx.device)
+    err = torch.zeros((lanes,), dtype=torch.int32, device=idx.device) \
+        if fast else None
     if fused:
         fused_scan_msm(table, idx, fast, out=local, err=err)
     else:
-        leaves = gather_rows(table, idx)                  # (24, seq, W, rows)
-        acc = jac_identity_words((lanes,), dev)
-        for s in range(seq):
-            acc, _ = jac_madd(acc, leaves[:, s].reshape(AFF, lanes), fast,
-                              out=local[:, s].reshape(JAC, lanes), err=err)
-        del leaves
-    # per-window counts of digits >= t for t = 1..2^c by binary search in
-    # the ascending sorted digits; threshold 2^c is dead (count 0) and
-    # only rounds the fold's width to a power of two
+        madd_scan(gather_rows(table, idx), fast, local, err)
+    return local, err
+
+
+def threshold_prefixes(local: torch.Tensor, d_sorted: torch.Tensor, c: int):
+    """Step 5's search and gather: per window the counts of digits >= t
+    for t = 1..2^c, by binary search in the ascending sorted digits, and
+    the local prefix at each count's last position.  Threshold 2^c is dead
+    (count 0) and only rounds the fold's width to a power of two.
+    Returns (ps (36, windows, 2^c), cnt (windows, 2^c), r_of: the row of
+    each position)."""
+    _, seq, windows, rows = local.shape
+    n = seq * rows
+    dev = local.device
     asc = torch.flip(d_sorted, dims=(-1,)).contiguous()
     t_vals = torch.arange(1, (1 << c) + 1, dtype=torch.int64, device=dev)
     first_ge = torch.searchsorted(asc,
@@ -157,18 +177,48 @@ def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
     flat = (s_of * windows + w_of) * rows + r_of
     ps = local.reshape(JAC, -1)[:, flat.reshape(-1)].reshape(
         JAC, windows, 1 << c)
-    if rows > 1:
-        totals = local[:, seq - 1].transpose(1, 2)            # (36, rows, W)
-        row_ps = prefix_scan_jac(totals)
-        offs = torch.cat([jac_identity_words((1, windows), dev),
-                          row_ps[:, :-1]], dim=1)             # exclusive
-        off_g = offs.transpose(1, 2).reshape(JAC, -1)[
-            :, (w_of * rows + r_of).reshape(-1)].reshape(JAC, windows, 1 << c)
-        ps = jac_add(ps, off_g)
-    del local
+    return ps, cnt, r_of
+
+
+def add_row_offsets(local: torch.Tensor, ps: torch.Tensor,
+                    r_of: torch.Tensor) -> torch.Tensor:
+    """Step 4: an inclusive prefix over the row totals (``prefix_scan_jac``)
+    gives exclusive row offsets; each threshold prefix adds its row's
+    (one ``jac_add``).  A single row has no offsets."""
+    _, seq, windows, rows = local.shape
+    if rows == 1:
+        return ps
+    dev = local.device
+    totals = local[:, seq - 1].transpose(1, 2)                # (36, rows, W)
+    row_ps = prefix_scan_jac(totals)
+    offs = torch.cat([jac_identity_words((1, windows), dev),
+                      row_ps[:, :-1]], dim=1)                 # exclusive
+    w_of = torch.arange(windows, device=dev)[:, None]
+    off_g = offs.transpose(1, 2).reshape(JAC, -1)[
+        :, (w_of * rows + r_of).reshape(-1)].reshape(ps.shape)
+    return jac_add(ps, off_g)
+
+
+def fold_windows(ps: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
+    """Step 5's fold: thresholds with no digit become the identity, then
+    pairwise halving (``tree_sum_jac``) -> (36, windows) window sums."""
     ps = torch.where((cnt > 0)[None], ps,
-                     jac_identity_words((windows, 1 << c), dev))
-    wsum = tree_sum_jac(ps.transpose(1, 2))                   # (36, W)
+                     jac_identity_words(tuple(cnt.shape), ps.device))
+    return tree_sum_jac(ps.transpose(1, 2))
+
+
+def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
+              c: int, windows: int, fast: bool, fused: bool = False):
+    """One chunk: table (t, 24) affine rows (t <= chunk), scalars (8, chunk)
+    canonical words (zero past t) -> ((36, windows) window sums, err).
+    ``fused`` runs steps 2-3 as one fused_scan launch."""
+    idx, d_sorted = bucket_order(scalars, table.shape[0], c, windows,
+                                 scan_seq(chunk))
+    local, err = scan_local(table, idx, fast, fused)
+    ps, cnt, r_of = threshold_prefixes(local, d_sorted, c)
+    ps = add_row_offsets(local, ps, r_of)
+    del local
+    wsum = fold_windows(ps, cnt)
     return wsum, (None if err is None else err.any())
 
 

@@ -4,8 +4,10 @@ without a CUDA device).  Run on the H100 with
 
 Every kernel against its plain PyTorch version on the same card inputs,
 bit for bit, at the edge-case shapes of chip_smoke.py's phase 2; the MSM
-in its fused-scan configuration against the split one; and the golden
-DummyCircuit bytes for all three transcripts proved on the card.  None
+in its fused-scan configuration against the split one; the golden
+DummyCircuit bytes for all three transcripts proved on the card; and the
+measurement tools' kernels (T1 gather variants, T2 primitive chains)
+against their plain versions, with T2's SASS holding every step.  None
 needs jax: the card machine has none.
 """
 
@@ -63,3 +65,32 @@ def test_msm_fused_equals_split_on_the_card(card):
 
 def test_golden_dummy_bytes_on_the_card(card):
     chip_smoke.golden(card)
+
+
+@pytest.mark.parametrize("row", range(9))
+def test_primbench_rows_match_plain_versions(card, row):
+    """Bit for bit, the fused f32 row at rtol 1e-4, on the tool's constant
+    input and a random one."""
+    from polymath_tpu_torch.tools import primbench as PB
+    for seed in (None, row + 1):
+        x = PB.make_input(row, card, seed)
+        PB.max_error(row, PB.chain(row, x), PB.chain_plain(row, x))
+
+
+def test_primbench_sass_keeps_every_step(card):
+    from polymath_tpu_torch.ops import _build
+    from polymath_tpu_torch.tools import primbench as PB
+    _build.lib("primbench")
+    PB.check_sass(PB.sass_counts())
+
+
+@pytest.mark.parametrize("variant", range(6))
+def test_gather_variants_match_plain_versions(card, variant):
+    """A 2^14-point table (t4 >= 4096 for the noidx probe), 2^15 rows, with
+    indices outside the table planted."""
+    from polymath_tpu_torch.tools import pgather_variants as GV
+    v = GV.VARIANTS[variant]
+    quad, idx = GV.make_inputs(1 << 14, 2, seed=5, device=card)
+    idx[:3] = torch.tensor([-1, 4 * quad.shape[0], 4 * quad.shape[0] - 1])
+    assert GV.mismatches(GV.gather_variant(v, quad, idx),
+                         GV.gather_variant_plain(v, quad, idx)) == 0
