@@ -11,26 +11,33 @@ Phases, each printing what it found:
    failing on any spill in any source (the report is read from the file
    each build leaves beside its library, so a cached build is checked
    too);
-2. kernels: every kernel (B1-B9 and the port-only to_affine) against its
-   plain PyTorch version on the same inputs on the card, bit for bit (0
-   mismatches allowed): first at moderate shapes that hold the edge cases
-   (field edge values, the degenerate point cases, dead and colliding MSM
-   leaves), then at the main path's shapes, where the kernel's time, its
-   plain version's time and its bound are taken;
+2. kernels: every kernel (B1-B9, the port-only to_affine, and the
+   one-launch madd scan and the two tree kernels that the MSM runs in the
+   place of per-step jac_madd and per-launch jac_add) against its plain
+   PyTorch version on the same inputs on the card, bit for bit (0
+   mismatches allowed; the tree kernels add in another order than their
+   plain versions, so their outputs are compared as affine points): first
+   at moderate shapes that hold the edge cases (field edge values, the
+   degenerate point cases, dead and colliding MSM leaves, identity, P + P
+   and P + (-P) in the tree), then at the main path's shapes, where the
+   kernel's time, its plain version's time and its bound are taken;
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
    setup and prove on the card, for all three transcripts, against
    tests/fixtures/golden_dummy.json;
 4. main path: BenchCircuit at N constraints (default 2^20 - 100, as
    bench.py), Merlin, seed 0: setup, a warm prove, a second prove, a
    verify of each and a rejected wrong public input, with per-phase times,
-   peak device memory and each kernel's launch count (B1-B6 > 0 in a
-   prove, the port-only to_affine > 0 in setup);
+   peak device memory and each kernel's launch count (every kernel of
+   PROVE_KERNELS > 0 in a prove, the port-only to_affine > 0 in setup; one
+   madd_scan per MSM chunk and no jac_madd, at most 3 tree launches a
+   chunk, fewer jac_add launches than chunks);
 4b. the fused-scan configuration (POLYMATH_MSM_FUSED=1) of the main path:
    with the phase-4 key, four proves in turns (split, fused, fused,
    split), each from a fresh Rng(7): the proofs must be byte-equal and
    verify, a wrong public input must be rejected, and each fused prove
-   must launch fused_scan (B7) once per MSM chunk and no jac_madd or
-   gather_rows.  Per-phase times, peak device memory and launches of each;
+   must launch fused_scan (B7) once per MSM chunk, no madd_scan, jac_madd
+   or gather_rows, and at most 3 tree launches a chunk.  Per-phase times,
+   peak device memory and launches of each;
 5. measurement entry points (polymath_tpu_torch/tools), each through its
    main() at its default size: primbench (T2: nine chains of 512
    dependent steps over 2^17 elements, on the tool's constant input and a
@@ -41,12 +48,16 @@ Phases, each printing what it found:
    -point table, bit for bit), kernel_metrics (NTT at 2^20 and 2^22, MSM
    at 2^20 with its host-oracle check) and fusedprof (each stage of one
    2^19-point MSM chunk, composed back to msm_chunk's window sums, split
-   and fused).  Every T1 and T2 kernel must have launched in this phase.
+   and fused, beside the per-step madd loop and the per-launch tree that
+   the one-launch kernels replaced).  Every T1 and T2 kernel must have
+   launched in this phase.
 
 B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
 phase 2 holds them against their plain versions and times them; their
-launch counts on the main path are 0.  T1 and T2 are timed, compared and
-counted by phase 5.
+launch counts on the main path are 0.  So is the one-step jac_madd's (B3
+at one step), since the split scan runs as one madd_scan launch a chunk;
+fusedprof launches it in phase 5 as the per-step yardstick.  T1 and T2
+are timed, compared and counted by phase 5.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and as the last line
@@ -93,17 +104,21 @@ DOUBLE_OPS = 2 * FQ_MUL_OPS + 5 * FQ_SQR_OPS       # dbl-2009-l
 BFLY_OPS = FR_MUL_OPS                              # one product a pair
 
 
-#: B1-B6, which every (split) prove launches, the kernel that replaces the
-#: gather and madd in the fused configuration, the two kernels no path of
-#: the reference calls, and the port-only setup kernel
-PROVE_KERNELS = ("fr_mul", "fr_sqr", "jac_madd", "gather_rows", "jac_add",
-                 "ntt_local")
-SPLIT_ONLY = ("jac_madd", "gather_rows")
+#: the kernels every (split) prove launches: B1, B2, B4, B6, the one-launch
+#: madd scan (B3), B5 and the two tree kernels that replace its launches in
+#: the MSM; the kernel that replaces the gather and madd scan in the fused
+#: configuration; kernels no prove launches (two that no path of the
+#: reference calls, and B3 at one step); the port-only setup kernel
+PROVE_KERNELS = ("fr_mul", "fr_sqr", "madd_scan", "gather_rows", "jac_add",
+                 "row_offsets", "window_fold", "ntt_local")
+SPLIT_ONLY = ("madd_scan", "gather_rows")
+TREE_KERNELS = ("row_offsets", "window_fold")
 FUSED_KERNELS = ("fused_scan",)
 UNCALLED_KERNELS = ("jac_double", "fr_butterfly")
+OFF_PATH_KERNELS = ("jac_madd",)
 SETUP_KERNELS = ("to_affine",)
 ALL_KERNELS = PROVE_KERNELS + FUSED_KERNELS + UNCALLED_KERNELS + \
-    SETUP_KERNELS
+    OFF_PATH_KERNELS + SETUP_KERNELS
 
 
 def nvidia_smi_line() -> str:
@@ -151,6 +166,13 @@ def compare(name: str, got, want) -> int:
         raise AssertionError(f"{name}: {lanes} lanes differ from the plain "
                              f"version")
     return int(diff.max()) if diff.numel() else 0
+
+
+def compare_points(name: str, got, want) -> int:
+    """Jacobian words that may differ where the group elements do not: both
+    sides to affine words by the plain formulas, then ``compare``."""
+    return compare(name, plain_to_affine(got.reshape(got.shape[0], -1)),
+                   plain_to_affine(want.reshape(want.shape[0], -1)))
 
 
 # -- phase 2: inputs ---------------------------------------------------------
@@ -232,11 +254,88 @@ def scan_inputs(dev, seq: int = 16, windows: int = 4, rows: int = 256):
     return table.to(dev), idx.reshape(seq, windows, rows).to(dev)
 
 
+def tree_case(windows: int, rows: int, n: int, seed: int):
+    """The MSM tree's inputs as discrete logs (numpy default_rng(seed)):
+    row totals (W, rows) and threshold prefixes (W, n) as small signed k
+    (the point k G), counts and rows of the thresholds (W, n),
+    non-increasing as msm.threshold_prefixes makes them, the last quarter
+    of the counts 0, and the exclusive row offsets (W, rows) they imply.
+    Planted: an identity total, a P + P pair and a P + (-P) pair among the
+    totals; a threshold equal to its row's offset and one equal to its
+    negation."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tot = rng.integers(-40, 41, (windows, rows))
+    if rows >= 4:
+        tot[0, 1] = 0
+        tot[0, 2] = tot[0, 3] = 17
+    if rows >= 3 and windows > 1:
+        tot[1, 1] = -tot[1, 0]
+    cnt = np.sort(rng.integers(0, 2 * rows, (windows, n)), axis=1)[:, ::-1]
+    cnt[:, -max(1, n // 4):] = 0
+    r_of = np.sort(rng.integers(0, rows, (windows, n)), axis=1)[:, ::-1]
+    ps = rng.integers(-40, 41, (windows, n))
+    offs = np.concatenate([np.zeros((windows, 1), np.int64),
+                           np.cumsum(tot, axis=1)[:, :-1]], axis=1)
+    if rows > 1:
+        ps[0, 0] = offs[0, r_of[0, 0]]
+        ps[-1, 1] = -offs[-1, r_of[-1, 1]]
+        cnt[0, :2] = np.maximum(cnt[0, :2], 1)
+        cnt[-1, :2] = np.maximum(cnt[-1, :2], 1)
+    return tuple(np.ascontiguousarray(x) for x in (tot, ps, cnt, r_of, offs))
+
+
+def host_point(k: int):
+    """k G for a small signed k (None for 0)."""
+    from polymath_tpu_torch.hostmath import bls12_381 as bls
+    if k == 0:
+        return None
+    p = bls.G1.mul(bls.G1.gen, abs(k))
+    return p if k > 0 else bls.G1.neg(p)
+
+
+def jac_words(ks, seed: int):
+    """(36, *ks.shape) Jacobian words of k G with a random Z != 1 (X = x
+    z^2, Y = y z^3); k = 0 is the identity (1, 1, 0)."""
+    import numpy as np
+    import torch
+    from polymath_tpu_torch.hostmath import bls12_381 as bls
+    from polymath_tpu_torch.ops.limbs import FQ_SPEC, ints_to_words
+    rng = np.random.default_rng(seed)
+    flat = np.asarray(ks).reshape(-1).tolist()
+    cache = {k: host_point(k) for k in set(flat)}
+    coords = [[], [], []]
+    for k in flat:
+        p = cache[k]
+        if p is None:
+            xyz = (1, 1, 0)
+        else:
+            z = int(rng.integers(2, 1 << 62))
+            xyz = (p[0].v * z * z % bls.Q, p[1].v * z * z * z % bls.Q, z)
+        for c, v in zip(coords, xyz):
+            c.append(FQ_SPEC.to_mont_int(v))
+    words = np.concatenate([ints_to_words(c, FQ_SPEC.L) for c in coords])
+    return torch.from_numpy(words.reshape((36,) + np.shape(ks)))
+
+
+def tree_inputs(dev, windows: int = 3, rows: int = 300, n: int = 1000,
+                seed: int = 3):
+    """tree_case on the card: (totals (36, W, rows), ps (36, W, n), cnt,
+    r_of (W, n) int64).  The default has two segments of rows (joined by
+    the carry pass) and several fold blocks a window (summed by the last
+    one)."""
+    import torch
+    tot, ps, cnt, r_of, _ = tree_case(windows, rows, n, seed)
+    return (jac_words(tot, seed).to(dev), jac_words(ps, seed + 1).to(dev),
+            torch.from_numpy(cnt).to(dev), torch.from_numpy(r_of).to(dev))
+
+
 def chunk_inputs(dev):
     """One d-MSM chunk as the prover feeds the fused scan: a table of the
     2^19 distinct points k G (k = 1..2^19, formed on the card from 4096
     host points and 128 offsets), random canonical scalars, and their
-    bucket order at c = 13: idx (256, 20, 2048)."""
+    bucket order at c = 13: idx (256, 20, 2048) and the sorted digits
+    (20, 2^19)."""
     import torch
     from polymath_tpu_torch.hostmath import bls12_381 as bls
     from polymath_tpu_torch.ops import curve as C
@@ -257,9 +356,9 @@ def chunk_inputs(dev):
     # top word below p's (0x73eda753): every scalar is canonical
     sc[7] = torch.randint(0, 0x73eda753, (chunk,), generator=g)
     c, windows = M.window_params(chunk)
-    idx, _ = M.bucket_order(sc.to(torch.int32).to(dev), chunk, c, windows,
-                            M.scan_seq(chunk))
-    return table, idx
+    idx, d_sorted = M.bucket_order(sc.to(torch.int32).to(dev), chunk, c,
+                                   windows, M.scan_seq(chunk))
+    return table, idx, d_sorted
 
 
 # -- phase 2: the plain versions -------------------------------------------
@@ -318,11 +417,12 @@ def check_kernels(dev) -> dict:
     shapes that hold the edge cases: 2^16 field elements with 0, 1, p - 1
     and p - 2; 2^12 points with the identity on either side, a (0, 0)
     leaf, P + P and P + (-P); a (16, 64, 2048) batch of local NTTs; a
-    (16, 4, 256) fused scan with the lanes of scan_inputs.
+    (16, 4, 256) fused scan, and the madd scan on its gathered leaves, with
+    the lanes of scan_inputs; the tree kernels on tree_inputs.
     Raises on any difference; returns {kernel: largest word error}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import cuda_scan
+    from polymath_tpu_torch.ops import cuda_scan, cuda_tree
     from polymath_tpu_torch.ops import ntt as N
 
     errs = {}
@@ -371,6 +471,30 @@ def check_kernels(dev) -> dict:
             if not all(bool(werr[i]) for i in (1, 2, 4)):
                 raise AssertionError("fast fused scan did not flag the "
                                      "planted collisions")
+    leaves_s = cuda_gather.gather_rows_plain(table_s, idx_s)
+    for fast in (False, True):
+        got, gerr = cuda_scan.madd_scan(leaves_s, fast)
+        want, werr = cuda_scan.madd_scan_plain(leaves_s, fast)
+        note("madd_scan", f"madd_scan fast={fast}", got, want)
+        if fast:
+            note("madd_scan", "madd_scan flag", gerr, werr)
+            if not all(bool(werr[i]) for i in (1, 2, 4)):
+                raise AssertionError("fast madd scan did not flag the "
+                                     "planted collisions")
+
+    totals, ps, cnt, r_of = tree_inputs(dev)
+    for what, t in (("", totals), (" (rows 5)", totals[:, :, :5]),
+                    (" (word stride 2 W rows)",
+                     torch.stack([totals.flip(2), totals], dim=1)[:, 1])):
+        offs = cuda_tree.row_offsets(t)
+        errs["row_offsets"] = max(errs.get("row_offsets", 0), compare_points(
+            "row_offsets" + what, offs, cuda_tree.row_offsets_plain(t)))
+    offs = cuda_tree.row_offsets(totals)
+    for what, o, r in (("", offs, r_of),
+                       (" (one row)", None, torch.zeros_like(r_of))):
+        errs["window_fold"] = max(errs.get("window_fold", 0), compare_points(
+            "window_fold" + what, cuda_tree.window_fold(ps, cnt, r, o),
+            cuda_tree.window_fold_plain(ps, cnt, r, o)))
 
     table = torch.cat([leaf.T, acc[:24].T]).contiguous()   # (8192, 24)
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -394,21 +518,22 @@ def measure_kernels(dev, errs: dict) -> dict:
     {kernel: the JSON entry without launches}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import cuda_scan
+    from polymath_tpu_torch.ops import cuda_scan, cuda_tree
+    from polymath_tpu_torch.ops import msm as M
     from polymath_tpu_torch.ops import ntt as N
     from polymath_tpu_torch.tools import bound_ms, timed_ms
 
     out = {}
 
     def entry(name, source, replaces, shape, kernel, plain, reps, nbytes,
-              ops, library=None):
+              ops, library=None, cmp=compare):
         # the plain version runs once (it is slow and no yardstick of
         # speed); the kernel is warmed up, then timed over ``reps`` calls;
         # ``library``, one PyTorch call for the same function, likewise
         want, plain_ms = timed_ms(plain, dev)
         kernel()
         got, kern_ms = timed_ms(kernel, dev, reps)
-        err = compare(name, got, want)
+        err = cmp(name, got, want)
         del got
         lib_ms = None
         if library is not None:
@@ -513,7 +638,7 @@ def measure_kernels(dev, errs: dict) -> dict:
     # the same chunk through the fused scan, fast as the prover runs it, on
     # the bucket order of random scalars over 2^19 distinct points.  Work:
     # every live leaf after a lane's first is one full madd.
-    table_c, idx_c = chunk_inputs(dev)
+    table_c, idx_c, d_sorted = chunk_inputs(dev)
     seq, lanes = idx_c.shape[0], idx_c[0].numel()
     live = (idx_c < table_c.shape[0]).reshape(seq, lanes).sum(0)
     madds = int((live - 1).clamp(min=0).sum())
@@ -524,7 +649,46 @@ def measure_kernels(dev, errs: dict) -> dict:
           lambda: cuda_scan.fused_scan_msm_plain(table_c, idx_c, True), 5,
           table_c.numel() * 4 + idx_c.numel() * 8
           + 36 * 4 * idx_c.numel() + 4 * lanes, MADD_OPS * madds)
+    # the split configuration's scan over the same chunk's gathered leaves
+    leaves = cuda_gather.gather_rows(table_c, idx_c)
+    entry("madd_scan", "polymath_tpu_torch/csrc/scan.cu",
+          "polymath_tpu/ops/pallas_curve.py:49",
+          "(24, 256, 20, 2048) leaves, fast",
+          lambda: cuda_scan.madd_scan(leaves, True),
+          lambda: cuda_scan.madd_scan_plain(leaves, True), 5,
+          (24 + 36) * 4 * idx_c.numel() + 4 * lanes, MADD_OPS * madds)
+    del leaves
+    # the chunk's tree: (36, 20, 2048) row totals, 2^13 thresholds a window.
+    # Work: an exclusive prefix of R rows needs R - 2 adds; a threshold
+    # with a count adds its row's offset unless the row is 0, and a
+    # window's L live thresholds need L - 1 adds to sum.
+    local, _ = M.scan_local(table_c, idx_c, True, True)
     del table_c, idx_c
+    ps, cnt, r_of = M.threshold_prefixes(
+        local, d_sorted, M.window_params(M.DEFAULT_CHUNK)[0])
+    totals = local[:, seq - 1]
+    windows, rows = totals.shape[1:]
+    entry("row_offsets", "polymath_tpu_torch/csrc/tree.cu",
+          "polymath_tpu/ops/pallas_curve.py:32",
+          f"(36, {windows}, {rows}) row totals",
+          lambda: cuda_tree.row_offsets(totals),
+          lambda: cuda_tree.row_offsets_plain(totals), 10,
+          2 * 36 * 4 * windows * rows, ADD_OPS * windows * (rows - 2),
+          cmp=compare_points)
+    offs = cuda_tree.row_offsets(totals)
+    del local, totals
+    n_live = (cnt > 0).sum(1)
+    adds = int(((cnt > 0) & (r_of > 0)).sum()) \
+        + int((n_live - 1).clamp(min=0).sum())
+    entry("window_fold", "polymath_tpu_torch/csrc/tree.cu",
+          "polymath_tpu/ops/pallas_curve.py:32",
+          f"(36, {windows}, {ps.shape[2]}) thresholds",
+          lambda: cuda_tree.window_fold(ps, cnt, r_of, offs),
+          lambda: cuda_tree.window_fold_plain(ps, cnt, r_of, offs), 10,
+          (36 * 4 + 16) * ps[0].numel() + 36 * 4 * (offs[0].numel()
+                                                      + windows),
+          ADD_OPS * adds, cmp=compare_points)
+    del ps, cnt, r_of, offs
 
     # the 2^22-point NTT's batch of 2048 transforms of 2048
     x = field_inputs(dev, 1 << 12, 6).repeat(1, 32).reshape(8, 64, 2048)
@@ -568,13 +732,14 @@ def golden(dev) -> None:
 
 def _counted_modules(tools: bool = False):
     """The kernel wrappers with a LAUNCHES counter: the prover's (B1-B9,
-    to_affine), or with ``tools`` the measurement tools' (T1, T2)."""
+    to_affine, the madd scan and the tree kernels), or with ``tools`` the
+    measurement tools' (T1, T2)."""
     if tools:
         from polymath_tpu_torch.tools import pgather_variants, primbench
         return (primbench, pgather_variants)
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import cuda_scan, ntt
-    return (cuda_field, cuda_curve, cuda_gather, cuda_scan, ntt)
+    from polymath_tpu_torch.ops import cuda_scan, cuda_tree, ntt
+    return (cuda_field, cuda_curve, cuda_gather, cuda_scan, cuda_tree, ntt)
 
 
 def launches(tools: bool = False) -> dict:
@@ -652,11 +817,29 @@ def main_path(dev, num_constraints: int) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    check_msm_launches(per_prove, "madd_scan")
     return {"launches": total, "per_prove": per_prove, "setup_s": setup_s,
             "warm_prove_s": warm_s, "prove_s": prove_s,
             "verify_ms": verify_s * 1e3, "peak_bytes": peak, "n": vk.n,
             "pm": pm, "pk": pk, "vk": vk, "circuit": circuit,
             "public": a * b % R}
+
+
+def check_msm_launches(fl: dict, scan: str) -> None:
+    """One prove's MSM launches: one ``scan`` (madd_scan or fused_scan) per
+    chunk (a chunk is one gather_rows in a split prove), no per-step
+    jac_madd, at most 3 tree launches a chunk, and fewer jac_add launches
+    than chunks (only the adds across an MSM's chunks remain)."""
+    chunks = fl[scan]
+    if scan == "madd_scan" and fl["gather_rows"] != chunks:
+        raise AssertionError(f"madd_scan launches {chunks} != gather_rows "
+                             f"{fl['gather_rows']}")
+    tree = sum(fl[k] for k in TREE_KERNELS)
+    if fl["jac_madd"] or not chunks or tree > 3 * chunks \
+            or fl["jac_add"] >= chunks:
+        raise AssertionError(f"MSM launches per prove {fl}: want one {scan} "
+                             f"a chunk, no jac_madd, at most 3 tree launches "
+                             f"a chunk, fewer jac_add than chunks")
 
 
 # -- phase 4b ------------------------------------------------------------------
@@ -723,6 +906,7 @@ def fused_path(run: dict) -> list:
             raise AssertionError(f"fused_scan launches {fl['fused_scan']} "
                                  f"!= split gather_rows "
                                  f"{split['gather_rows']}")
+        check_msm_launches(fl, "fused_scan")
         missing = [k for k in PROVE_KERNELS + FUSED_KERNELS
                    if k not in SPLIT_ONLY and fl[k] == 0]
         if missing:
@@ -871,7 +1055,8 @@ def main() -> int:
     print(f"[5] kernel_metrics: {'; '.join(rates)}; "
           f"{km['msm_oracle_check']}", flush=True)
     print(f"[5] fusedprof chunk {fp['chunk']}: stages "
-          f"{json.dumps(fp['stages_ms'])}; sum split "
+          f"{json.dumps(fp['stages_ms'])}; yardsticks "
+          f"{json.dumps(fp['yardsticks_ms'])}; sum split "
           f"{fp['split_sum_ms']:.3f} ms, fused {fp['fused_sum_ms']:.3f} ms; "
           f"phase 5 took {time.time() - t0:.1f} s", flush=True)
 
@@ -887,6 +1072,10 @@ def main() -> int:
             k["launches_per_prove"] = run["per_prove"][name]
         if name in UNCALLED_KERNELS:
             k["note"] = "no path of the reference calls this kernel"
+        if name in OFF_PATH_KERNELS:
+            k["note"] = ("B3 at one step: the split scan runs as one "
+                         "madd_scan launch a chunk; fusedprof launches it "
+                         "as its per-step yardstick (phase 5)")
         kernels.append(k)
     kernels += meas["entries"]
     print(f"[6] total {time.time() - t_start:.1f} s", flush=True)

@@ -1,49 +1,77 @@
-// The fused MSM bucket scan: replaces polymath_tpu/ops/pallas_scan.py:
-// _fused_kernel (B7).  Kept apart from g1.cu so that the two sources, each
-// inlining the madd of g1.cuh, compile in parallel.
+// The MSM bucket scans, both configurations:
+//   polymath_tpu/ops/pallas_scan.py:_fused_kernel          -> g1_scan_msm_kernel
+//     (B7, the fused configuration: leaves read from the point table)
+//   polymath_tpu/ops/pallas_curve.py:_madd_kernel as scanned by
+//     polymath_tpu/ops/msm.py:_scan_local_madd             -> g1_madd_scan_kernel
+//     (B3, the split configuration: leaves read from the gathered buffer)
+// Kept apart from g1.cu so that the two sources, each inlining the madd of
+// g1.cuh, compile in parallel.
+//
+// Both kernels run, for every lane i of a chunk (lanes = W * rows), the
+// inclusive mixed-add scan of its seq sorted leaves, and differ only in
+// where a leaf comes from: the step loop (scan_lane) is written once, as a
+// template over the leaf source.
+//
+//   local (36, seq, lanes): step s holds each lane's prefix after s + 1
+//   leaves, so local[:, seq - 1] are the lane totals.  err (lanes,) gets 1
+//   where the fast form skipped a doubling (never cleared: OR-ed).
+//
+// The reference's sequential grid axis (t, or lax.scan's steps) becomes the
+// loop inside the thread: the Jacobian accumulator stays in registers for
+// all seq steps, and the next step's leaf (or its index) is in flight while
+// this step's madd runs.  Stores of one step are coalesced (neighbouring
+// lanes, neighbouring words).  The madds run in the order of the per-step
+// loop they replace, so the outputs are that loop's, word for word.
+//
+// Bound on the H100: integer multiplies.  One 2^19-point chunk at c = 13
+// is 20 x 2^19 = 10.5M madds x 6,072 32-bit multiply-adds at 16.7e12/s,
+// about 3.8 ms.  Bytes: the fused kernel reads the 50 MB table (about fits
+// the 50 MB L2) and 8 B of index a madd; the split one reads 96 B of leaf a
+// madd (about 1 GB a chunk, step-major and limb-major, so coalesced); both
+// write 144 B of prefix a madd.  64 threads a block spread the 40,960 lanes
+// of a chunk evenly over the 132 SMs (640 blocks, at most 5 on one SM).
+//
+// What the split kernel replaces: seq = 256 launches of g1_madd_kernel a
+// chunk, each paying the host's launch (15-35 us, PERF.md) and reloading
+// and restoring every lane's 144-byte accumulator (about 1.5 GB a chunk each
+// way), both gone here.
 #include <cuda_runtime.h>
 #include "g1.cuh"
 
 namespace {
 
-// Fused MSM bucket scan (B7): for every lane i of a chunk (lanes = W *
-// rows), the inclusive mixed-add scan of its seq sorted leaves, read
-// straight from the affine point table.  It computes what the split pair
-// does (g1_gather_kernel into a leaf buffer, then seq launches of
-// g1_madd_kernel), in one launch and without writing the leaves.
-//
-//   table (T, 24) words as 16-byte vectors; idx (seq, lanes) int64, step
-//   major; an index outside [0, T) is the affine identity (a dead leaf).
-//   local (36, seq, lanes): step s holds each lane's prefix after s + 1
-//   leaves, so local[:, seq - 1] are the lane totals.  err (lanes,) gets 1
-//   where the fast form skipped a doubling (never cleared: OR-ed).
-//
-// The reference's sequential grid axis (t) becomes the loop inside the
-// thread: the Jacobian accumulator stays in registers for all seq steps,
-// and the next step's index is loaded before this step's madd.  Stores of
-// one step are coalesced (neighbouring lanes, neighbouring words).
-//
-// Bound on the H100: integer multiplies.  One 2^19-point chunk at c = 13
-// is 20 x 2^19 = 10.5M madds x 6,072 32-bit multiply-adds at 16.7e12/s,
-// about 3.8 ms; its bytes (the 50 MB table, 8 B of index and 144 B of
-// prefix a madd) take about 0.5 ms.  The table about fits the 50 MB L2.
-// 64 threads a block spread the 40,960 lanes of a chunk evenly over the
-// 132 SMs (640 blocks, at most 5 on one SM).
 constexpr int kScanThreads = 64;
 
-__global__ void __launch_bounds__(kScanThreads)
-g1_scan_msm_kernel(const uint4* table, long T, const int64_t* idx,
-                   uint32_t* local, int32_t* err, long fast, long seq,
-                   long lanes) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
+// The step loop of one lane: acc_s = acc_(s-1) + leaf_s, every prefix
+// stored.  Leaves::step(s, x2, y2) yields leaf s (and may start fetching
+// leaf s + 1).
+template <class Leaves>
+__device__ __forceinline__ void scan_lane(Leaves& leaves, long i, long seq,
+                                          long lanes, bool fast,
+                                          uint32_t* local, int32_t* err) {
   const long stride = seq * lanes;
   Jac acc = jac_identity();
   bool coll = false;
-  long r = idx[i];
   for (long s = 0; s < seq; ++s) {
-    const long r_next = s + 1 < seq ? idx[(s + 1) * lanes + i] : T;
     Fq x2, y2;
+    leaves.step(s, x2, y2);
+    acc = jac_madd(acc, x2, y2, fast, &coll);
+    store_jac(local + s * lanes, stride, i, acc);
+  }
+  if (coll) err[i] = 1;
+}
+
+// B7's leaf source: table (T, 24) words as 16-byte vectors; idx (seq,
+// lanes) int64, step major; an index outside [0, T) is the affine identity
+// (a dead leaf).  The next step's index is loaded before this step's madd.
+struct TableLeaves {
+  const uint4* table;
+  long T;
+  const int64_t* idx;
+  long seq, lanes, i, r;
+
+  __device__ __forceinline__ void step(long s, Fq& x2, Fq& y2) {
+    const long r_next = s + 1 < seq ? idx[(s + 1) * lanes + i] : T;
     if (r >= 0 && r < T) {
 #pragma unroll
       for (int v = 0; v < 3; ++v) {
@@ -62,11 +90,71 @@ g1_scan_msm_kernel(const uint4* table, long T, const int64_t* idx,
       x2 = fe_zero<FqP>();
       y2 = fe_zero<FqP>();
     }
-    acc = jac_madd(acc, x2, y2, fast != 0, &coll);
-    store_jac(local + s * lanes, stride, i, acc);
     r = r_next;
   }
-  if (coll) err[i] = 1;
+};
+
+// The split scan's leaf source: the gathered leaves (24, seq, lanes), limb
+// major and step major ((0, 0) is the identity).  Each thread copies its
+// next leaf with cp.async into a two-stage ring in shared memory (2 x 96 B
+// a thread, 12 KB a block), which costs no registers across the madd; a
+// thread reads back only what it copied itself, so the ring needs no
+// barrier, only cp.async.wait_group.
+struct BufferLeaves {
+  const uint32_t* leaves;
+  long seq, lanes, i;
+  uint32_t* ring;  // [2][24][kScanThreads]; this thread's column
+
+  __device__ __forceinline__ void fetch(long s) {
+    uint32_t* dst = ring + (s & 1) * 24 * kScanThreads;
+    const uint32_t* src = leaves + s * lanes + i;
+    const long word = seq * lanes;
+#pragma unroll
+    for (int k = 0; k < 24; ++k) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(
+          dst + k * kScanThreads);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                   "l"(src + k * word)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  __device__ __forceinline__ void step(long s, Fq& x2, Fq& y2) {
+    if (s + 1 < seq) {
+      fetch(s + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    const uint32_t* src = ring + (s & 1) * 24 * kScanThreads;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      x2.w[k] = src[k * kScanThreads];
+      y2.w[k] = src[(12 + k) * kScanThreads];
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kScanThreads)
+g1_scan_msm_kernel(const uint4* table, long T, const int64_t* idx,
+                   uint32_t* local, int32_t* err, long fast, long seq,
+                   long lanes) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= lanes) return;
+  TableLeaves src{table, T, idx, seq, lanes, i, idx[i]};
+  scan_lane(src, i, seq, lanes, fast != 0, local, err);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+g1_madd_scan_kernel(const uint32_t* leaves, uint32_t* local, int32_t* err,
+                    long fast, long seq, long lanes) {
+  __shared__ uint32_t ring[2 * 24 * kScanThreads];
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= lanes) return;
+  BufferLeaves src{leaves, seq, lanes, i, ring + threadIdx.x};
+  src.fetch(0);
+  scan_lane(src, i, seq, lanes, fast != 0, local, err);
 }
 
 inline unsigned blocks_for(long m, int threads) {
@@ -83,5 +171,16 @@ extern "C" int pm_g1_scan_msm(const void* table, long T, const void* idx,
                          (cudaStream_t)stream>>>(
         (const uint4*)table, T, (const int64_t*)idx, (uint32_t*)local,
         (int32_t*)err, fast, seq, lanes);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pm_g1_madd_scan(const void* leaves, void* local, void* err,
+                               long fast, long seq, long lanes,
+                               void* stream) {
+  if (seq > 0 && lanes > 0)
+    g1_madd_scan_kernel<<<blocks_for(lanes, kScanThreads), kScanThreads, 0,
+                          (cudaStream_t)stream>>>(
+        (const uint32_t*)leaves, (uint32_t*)local, (int32_t*)err, fast, seq,
+        lanes);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ Two layers, as in field.py:
 * point tensors in the port's word format, which every kernel takes:
   Jacobian ``(36, ...)`` int32 words = X | Y | Z (12 words each), affine
   ``(24, ...)`` = X | Y.  Reductions over a batch axis (``tree_sum_jac``,
-  ``prefix_scan_jac``) run on these through the ``jac_add`` kernel.
+  ``prefix_scan_jac``) run on these through the ``jac_add`` kernel, or
+  through the Jacobian add they are given.
 
 Identity conventions (curve_jax.py): Jacobian Z == 0; affine (0, 0) — Y = 0
 never occurs on G1 (no 2-torsion), so it marks the identity in SRS vectors
@@ -252,10 +253,12 @@ def affine_to_jac_words(xy: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy, torch.where(inf, torch.zeros_like(one), one)])
 
 
-def tree_sum_jac(pj: torch.Tensor) -> torch.Tensor:
+def tree_sum_jac(pj: torch.Tensor, add=None) -> torch.Tensor:
     """Sum a (36, n, ...) Jacobian batch over axis 1 by pairwise halving:
-    log2(n) launches of one batched jac_add each.  Returns (36, ...)."""
-    from .cuda_curve import jac_add
+    log2(n) calls of ``add`` (default: the ``jac_add`` kernel wrapper),
+    each one batched add.  Returns (36, ...)."""
+    if add is None:
+        from .cuda_curve import jac_add as add
     n = pj.shape[1]
     while n > 1:
         if n & 1:
@@ -263,20 +266,22 @@ def tree_sum_jac(pj: torch.Tensor) -> torch.Tensor:
             pj = torch.cat([pj, idn], dim=1)
             n += 1
         half = n // 2
-        pj = jac_add(pj[:, :half], pj[:, half:])
+        pj = add(pj[:, :half], pj[:, half:])
         n = half
     return pj[:, 0]
 
 
-def prefix_scan_jac(pj: torch.Tensor) -> torch.Tensor:
+def prefix_scan_jac(pj: torch.Tensor, add=None) -> torch.Tensor:
     """Inclusive prefix sum of a (36, n, ...) Jacobian batch along axis 1
-    (Hillis-Steele: log2(n) launches of one full-width jac_add each)."""
-    from .cuda_curve import jac_add
+    (Hillis-Steele: log2(n) calls of ``add``, default the ``jac_add``
+    kernel wrapper, each one full-width batched add)."""
+    if add is None:
+        from .cuda_curve import jac_add as add
     n = pj.shape[1]
     k = 1
     while k < n:
         idn = jac_identity_words((k,) + tuple(pj.shape[2:]), pj.device)
-        pj = jac_add(pj, torch.cat([idn, pj[:, :n - k]], dim=1))
+        pj = add(pj, torch.cat([idn, pj[:, :n - k]], dim=1))
         k *= 2
     return pj
 

@@ -8,13 +8,14 @@ window w of c-bit digits:
   2. the ``gather_rows`` kernel permutes the affine bases into that order
      (dead leaves, digit 0, read the zero row: the affine identity);
   3. the sorted leaves, viewed as (rows, seq), run ONE inclusive mixed-add
-     scan along seq: ``seq`` launches of the ``jac_madd`` kernel, each over
-     all windows and rows at once, writing every local prefix;
-  4. an inclusive prefix over the row totals (``jac_add``) gives exclusive
-     row offsets;
+     scan along seq over all windows and rows at once, writing every local
+     prefix: one launch of the ``madd_scan`` kernel (ops/cuda_scan.py);
+  4. an exclusive prefix over the row totals gives the row offsets
+     (``row_offsets``, ops/cuda_tree.py: a scan of each segment of rows and
+     a carry pass, two launches);
   5. sum_i d_i P_i = sum_{t=1}^{2^c} PS_{cnt(d >= t)}: the global prefix is
-     formed only at the 2^c threshold positions (one ``jac_add`` each) and
-     the thresholds fold by pairwise halving.
+     formed only at the 2^c threshold positions (each adds its row's
+     offset) and the thresholds are summed: one launch of ``window_fold``.
 
 The fused configuration (``fused=True``, or ``POLYMATH_MSM_FUSED`` set to
 ``1``/``on``/``true`` when ``fused`` is None, as the reference's
@@ -49,13 +50,11 @@ import numpy as np
 import torch
 
 from ..hostmath import bls12_381 as bls
-from .cuda_curve import jac_add, jac_madd
+from .cuda_curve import jac_add
 from .cuda_gather import gather_rows
-from .cuda_scan import fused_scan_msm
-from .curve import (
-    AFF, FW, JAC, jac_identity_words, jac_to_host,
-    prefix_scan_jac, tree_sum_jac,
-)
+from .cuda_scan import fused_scan_msm, madd_scan
+from .cuda_tree import row_offsets as _row_offsets, window_fold
+from .curve import AFF, FW, JAC, jac_to_host
 from .field import fr_from_mont, fr_window_digits
 from .limbs import FQ_SPEC, words_to_ints
 
@@ -124,26 +123,12 @@ def sort_digits(digits: torch.Tensor, t: int, seq: int):
     return idx, d_sorted
 
 
-def madd_scan(leaves: torch.Tensor, fast: bool, out: torch.Tensor,
-              err: torch.Tensor | None) -> torch.Tensor:
-    """Step 3 of the split scan: gathered leaves (24, seq, ...) -> every
-    local prefix in ``out`` (36, seq, ...), ``seq`` launches of
-    ``jac_madd`` over all lanes; the fast form ORs its flag into ``err``."""
-    seq = leaves.shape[1]
-    lanes = leaves[0, 0].numel()
-    acc = jac_identity_words((lanes,), leaves.device)
-    for s in range(seq):
-        acc, _ = jac_madd(acc, leaves[:, s].reshape(AFF, lanes), fast,
-                          out=out[:, s].reshape(JAC, lanes), err=err)
-    return out
-
-
 def scan_local(table: torch.Tensor, idx: torch.Tensor, fast: bool,
                fused: bool):
     """Steps 2-3 for one chunk: idx (seq, windows, rows) from
     ``bucket_order`` -> (local (36, seq, windows, rows) Jacobian prefixes,
     err (lanes,) int32 or None).  ``fused`` runs them as one fused_scan
-    launch, else ``gather_rows`` then ``madd_scan``."""
+    launch, else ``gather_rows`` then one ``madd_scan`` launch."""
     lanes = idx[0].numel()
     local = torch.empty((JAC,) + tuple(idx.shape), dtype=torch.int32,
                         device=idx.device)
@@ -180,31 +165,12 @@ def threshold_prefixes(local: torch.Tensor, d_sorted: torch.Tensor, c: int):
     return ps, cnt, r_of
 
 
-def add_row_offsets(local: torch.Tensor, ps: torch.Tensor,
-                    r_of: torch.Tensor) -> torch.Tensor:
-    """Step 4: an inclusive prefix over the row totals (``prefix_scan_jac``)
-    gives exclusive row offsets; each threshold prefix adds its row's
-    (one ``jac_add``).  A single row has no offsets."""
-    _, seq, windows, rows = local.shape
-    if rows == 1:
-        return ps
-    dev = local.device
-    totals = local[:, seq - 1].transpose(1, 2)                # (36, rows, W)
-    row_ps = prefix_scan_jac(totals)
-    offs = torch.cat([jac_identity_words((1, windows), dev),
-                      row_ps[:, :-1]], dim=1)                 # exclusive
-    w_of = torch.arange(windows, device=dev)[:, None]
-    off_g = offs.transpose(1, 2).reshape(JAC, -1)[
-        :, (w_of * rows + r_of).reshape(-1)].reshape(ps.shape)
-    return jac_add(ps, off_g)
-
-
-def fold_windows(ps: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
-    """Step 5's fold: thresholds with no digit become the identity, then
-    pairwise halving (``tree_sum_jac``) -> (36, windows) window sums."""
-    ps = torch.where((cnt > 0)[None], ps,
-                     jac_identity_words(tuple(cnt.shape), ps.device))
-    return tree_sum_jac(ps.transpose(1, 2))
+def row_offsets(local: torch.Tensor) -> torch.Tensor | None:
+    """Step 4: the exclusive prefix over each window's row totals
+    ``local[:, seq - 1]`` -> (36, windows, rows); None for a single row,
+    which has no offsets."""
+    _, seq, _, rows = local.shape
+    return None if rows == 1 else _row_offsets(local[:, seq - 1])
 
 
 def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
@@ -216,9 +182,9 @@ def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
                                  scan_seq(chunk))
     local, err = scan_local(table, idx, fast, fused)
     ps, cnt, r_of = threshold_prefixes(local, d_sorted, c)
-    ps = add_row_offsets(local, ps, r_of)
+    offs = row_offsets(local)
     del local
-    wsum = fold_windows(ps, cnt)
+    wsum = window_fold(ps, cnt, r_of, offs)
     return wsum, (None if err is None else err.any())
 
 

@@ -3,8 +3,11 @@ without a CUDA device).  Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Every kernel against its plain PyTorch version on the same card inputs,
-bit for bit, at the edge-case shapes of chip_smoke.py's phase 2; the MSM
-in its fused-scan configuration against the split one; the golden
+bit for bit (the tree kernels, which add in another order, as affine
+points), at the edge-case shapes of chip_smoke.py's phase 2 and, for the
+one-launch madd scan and the tree kernels, at the shapes of the CPU tests
+(tests/test_torch_tree.py); the MSM in its fused-scan configuration
+against the split one, each through its own launches; the golden
 DummyCircuit bytes for all three transcripts proved on the card; and the
 measurement tools' kernels (T1 gather variants, T2 primitive chains)
 against their plain versions, with T2's SASS holding every step.  None
@@ -31,16 +34,66 @@ def card():
 def test_kernels_match_plain_versions(card):
     errs = chip_smoke.check_kernels(card)
     assert set(errs) == set(chip_smoke.ALL_KERNELS)
-    assert len(errs) == 10
+    assert len(errs) == 13
     assert not any(errs.values())
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("seq, windows, rows", [(5, 2, 3), (8, 3, 4),
+                                                (256, 2, 100)])
+def test_madd_scan_matches_plain_version(card, seq, windows, rows, fast):
+    """Gathered leaves of k G (k < 200, about a fifth dead), lane 1 with a
+    repeated leaf: every prefix and the flag bit for bit."""
+    from polymath_tpu_torch.ops import cuda_gather, cuda_scan
+    from polymath_tpu_torch.ops.curve import points_to_device
+    table = points_to_device(chip_smoke.host_points(200)).T.contiguous()
+    g = torch.Generator().manual_seed(seq * rows)
+    idx = torch.randint(0, 250, (seq, windows * rows), generator=g)
+    idx[:2, 1] = 7
+    leaves = cuda_gather.gather_rows_plain(
+        table, idx.clamp(max=200).reshape(seq, windows, rows)).to(card)
+    got, gerr = cuda_scan.madd_scan(leaves, fast)
+    want, werr = cuda_scan.madd_scan_plain(leaves, fast)
+    assert torch.equal(got, want)
+    if fast:
+        assert torch.equal(gerr, werr) and bool(gerr[1])
+
+
+@pytest.mark.parametrize("windows, rows, n", [(3, 6, 16), (3, 8, 16),
+                                              (2, 5, 13), (2, 1, 7),
+                                              (3, 300, 1000), (20, 2048, 600)])
+def test_tree_kernels_match_plain_versions(card, windows, rows, n):
+    """chip_smoke.tree_case's inputs, as affine points: the CPU tests'
+    shapes, and shapes with several segments of rows and several fold
+    blocks a window."""
+    from polymath_tpu_torch.ops import cuda_tree
+    from polymath_tpu_torch.ops import msm as M
+    totals, ps, cnt, r_of = chip_smoke.tree_inputs(card, windows, rows, n,
+                                                   rows + n)
+    chip_smoke.reset_launches()
+    offs = M.row_offsets(totals[:, None])
+    wsum = cuda_tree.window_fold(ps, cnt, r_of, offs)
+    if rows == 1:
+        assert offs is None
+    else:
+        chip_smoke.compare_points("row_offsets", offs,
+                                  cuda_tree.row_offsets_plain(totals))
+    chip_smoke.compare_points("window_fold", wsum, cuda_tree.window_fold_plain(
+        ps, cnt, r_of, offs))
+    # more than 2 rows a thread of one block: a carry pass joins segments
+    assert cuda_tree.LAUNCHES == {
+        "row_offsets": 0 if rows == 1 else 1 + int(rows > 2 * 128),
+        "window_fold": 1}
 
 
 def test_msm_fused_equals_split_on_the_card(card):
     """One 2^12-point chunk (plus a peeled tail) of distinct points with
     random scalars: the fused scan and the split scan give the same point,
-    and each launches only its own scan kernels."""
+    and each launches only its own scan kernel, then the two tree kernels
+    once each (2^8 thresholds: one fold launch)."""
     from polymath_tpu_torch.hostmath.bls12_381 import R
     from polymath_tpu_torch.ops import cuda_curve, cuda_gather, cuda_scan
+    from polymath_tpu_torch.ops import cuda_tree
     from polymath_tpu_torch.ops import msm as M
     from polymath_tpu_torch.ops.curve import points_to_device
     from polymath_tpu_torch.ops.limbs import FR_SPEC, ints_to_words
@@ -53,13 +106,16 @@ def test_msm_fused_equals_split_on_the_card(card):
     sc = torch.from_numpy(ints_to_words(vals, FR_SPEC.L)).to(card)
     chip_smoke.reset_launches()
     split = M.msm_device(rows, sc, chunk=1 << 12, fused=False)
-    assert cuda_scan.LAUNCHES["fused_scan"] == 0
+    assert cuda_scan.LAUNCHES == {"madd_scan": 1, "fused_scan": 0}
     assert cuda_gather.LAUNCHES["gather_rows"] == 1
+    assert cuda_curve.LAUNCHES["jac_madd"] == 0
+    assert cuda_tree.LAUNCHES == {"row_offsets": 1, "window_fold": 1}
     chip_smoke.reset_launches()
     fused = M.msm_device(rows, sc, chunk=1 << 12, fused=True)
-    assert cuda_scan.LAUNCHES["fused_scan"] == 1
+    assert cuda_scan.LAUNCHES == {"madd_scan": 0, "fused_scan": 1}
     assert cuda_gather.LAUNCHES["gather_rows"] == 0
     assert cuda_curve.LAUNCHES["jac_madd"] == 0
+    assert cuda_tree.LAUNCHES == {"row_offsets": 1, "window_fold": 1}
     assert fused == split == g1_msm(pts, vals)
 
 

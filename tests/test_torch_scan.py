@@ -5,10 +5,11 @@ The reference for the scan is the split pair that the reference's fused
 kernel replaces (pallas_scan.py: "drop-in for the gather_rows +
 _scan_local_madd pair"): leaves gathered with numpy from the same host
 points, then curve_jax.jac_madd_core run eagerly step by step.  Every
-local prefix and the collision flag must agree bit for bit, fast and safe,
-with dead leaves, an all-dead lane, a duplicate base, a leaf equal to the
-running sum and P + (-P).  The MSM in its fused configuration is held
-against the split one and the native g1_msm.
+local prefix and the collision flag of the fused scan, and of the split
+configuration's one-launch madd scan on the same leaves, must agree bit
+for bit, fast and safe, with dead leaves, an all-dead lane, a duplicate
+base, a leaf equal to the running sum and P + (-P).  The MSM in its fused
+configuration is held against the split one and the native g1_msm.
 """
 
 import random
@@ -80,16 +81,22 @@ def test_fused_scan_matches_reference_split_pair(fast):
 
     ext = np.concatenate([table.numpy(), np.zeros((1, C.AFF), np.int32)])
     leaves = ext[idx.numpy().reshape(SEQ, LANES)]           # (SEQ, LANES, 24)
+    # the split configuration's one-launch scan on the same leaves
+    split, split_err = cuda_scan.madd_scan(torch.from_numpy(
+        np.ascontiguousarray(leaves.transpose(2, 0, 1))).reshape(
+            C.AFF, SEQ, W, ROWS), fast)
     acc = CJ.jac_identity((LANES,))
     want_err = np.zeros(LANES, bool)
     for s in range(SEQ):
         leaf = torch.from_numpy(np.ascontiguousarray(leaves[s].T))
         acc, e = CJ.jac_madd_core(acc, _jax(leaf, 2), fast)
         assert torch.equal(local[:, s].reshape(C.JAC, LANES), _words(acc)), s
+        assert torch.equal(split[:, s].reshape(C.JAC, LANES), _words(acc)), s
         if fast:
             want_err |= np.asarray(e)
     if fast:
         assert err.bool().tolist() == want_err.tolist()
+        assert split_err.bool().tolist() == want_err.tolist()
         assert bool(err[1]) and bool(err[2])
 
     safe = local if not fast else cuda_scan.fused_scan_msm(table, idx,
