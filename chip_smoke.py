@@ -10,17 +10,21 @@ Phases, each printing what it found:
    at once) and prints the build time and each kernel's ptxas report,
    failing on any spill in any source (the report is read from the file
    each build leaves beside its library, so a cached build is checked
-   too);
+   too), and the blocks of the scan kernels the card holds at once;
 2. kernels: every kernel (B1-B9, the port-only to_affine, and the
    one-launch madd scan and the two tree kernels that the MSM runs in the
    place of per-step jac_madd and per-launch jac_add) against its plain
    PyTorch version on the same inputs on the card, bit for bit (0
    mismatches allowed; the tree kernels add in another order than their
    plain versions, so their outputs are compared as affine points): first
-   at moderate shapes that hold the edge cases (field edge values, the
-   degenerate point cases, dead and colliding MSM leaves, identity, P + P
-   and P + (-P) in the tree), then at the main path's shapes, where the
-   kernel's time, its plain version's time and its bound are taken;
+   at moderate shapes that hold the edge cases (field words on which a
+   carry-chain fault shows -- 0, 1, p - 1, p - 2, R mod p, R^2 mod p and
+   runs of 0xffffffff words -- in the inputs of every field and point
+   kernel, the degenerate point cases, dead and colliding MSM leaves,
+   identity, P + P and P + (-P) in the tree, the gather at a ragged row
+   count with indices outside the table), then at the main path's shapes,
+   where the kernel's time, its plain version's time and its bound are
+   taken;
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
    setup and prove on the card, for all three transcripts, against
    tests/fixtures/golden_dummy.json;
@@ -49,8 +53,10 @@ Phases, each printing what it found:
    at 2^20 with its host-oracle check) and fusedprof (each stage of one
    2^19-point MSM chunk, composed back to msm_chunk's window sums, split
    and fused, beside the per-step madd loop and the per-launch tree that
-   the one-launch kernels replaced).  Every T1 and T2 kernel must have
-   launched in this phase.
+   the one-launch kernels replaced), and productprobe (to_affine at
+   40,960 and 2^20 lanes, a probe of one Fq product's latency and
+   throughput, and the SASS instructions of one inlined product).  Every
+   T1 and T2 kernel must have launched in this phase.
 
 B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
 phase 2 holds them against their plain versions and times them; their
@@ -177,16 +183,46 @@ def compare_points(name: str, got, want) -> int:
 
 # -- phase 2: inputs ---------------------------------------------------------
 
-def field_inputs(dev, n: int, seed: int):
+def edge_values(p: int, n_words: int) -> list:
+    """Stored words (Montgomery form, as the kernels read them) on which a
+    carry-chain fault shows: 0, 1, p - 1, p - 2, R mod p, R^2 mod p, and
+    values below p whose low k words are all 0xffffffff (k = 1 .. N - 1),
+    so that a carry from word 0 ripples across the element."""
+    r = 1 << (32 * n_words)
+    vals = [0, 1, p - 1, p - 2, r % p, r * r % p]
+    for k in range(1, n_words):
+        low = (1 << (32 * k)) - 1
+        vals.append(((((p - 1) >> (32 * k)) - 1) << (32 * k)) | low)
+    vals.append((1 << (32 * (n_words - 1))) - 1)   # all ones but the top
+    return list(dict.fromkeys(v % p for v in vals))
+
+
+def field_inputs(dev, n: int, seed: int, role: int = 0):
+    """n random canonical Fr elements (numpy default_rng(seed)) whose
+    first E^2 lanes hold every pair of the E edge values: lane k holds
+    edge k // E for role 0, edge k % E for role 1, so two inputs of
+    different roles meet every pair."""
     import numpy as np
     import torch
     from polymath_tpu_torch.ops.limbs import FR_SPEC, ints_to_words
     rng = np.random.default_rng(seed)
     p = FR_SPEC.modulus
     vals = [int.from_bytes(rng.bytes(40), "little") % p for _ in range(n)]
-    vals[:4] = [0, 1, p - 1, p - 2]
     mont = [FR_SPEC.to_mont_int(v) for v in vals]
+    e = edge_values(p, FR_SPEC.L)
+    for k in range(min(n, len(e) ** 2)):
+        mont[k] = e[k // len(e)] if role == 0 else e[k % len(e)]
     return torch.from_numpy(ints_to_words(mont, FR_SPEC.L)).to(dev)
+
+
+def fq_edge_words(count: int, shift: int):
+    """(12, count) Fq words cycling through the Fq edge values, starting
+    at edge ``shift``."""
+    import torch
+    from polymath_tpu_torch.ops.limbs import FQ_SPEC, ints_to_words
+    e = edge_values(FQ_SPEC.modulus, FQ_SPEC.L)
+    return torch.from_numpy(ints_to_words(
+        [e[(shift + k) % len(e)] for k in range(count)], FQ_SPEC.L))
 
 
 def host_points(n: int):
@@ -202,7 +238,8 @@ def host_points(n: int):
 def point_inputs(dev, n: int):
     """Jacobian accumulators with Z != 1 and affine leaves, with the
     degenerate lanes: identity on either side, a (0, 0) leaf, P + P and
-    P + (-P) (both with Z = 1 and with Z != 1)."""
+    P + (-P) (both with Z = 1 and with Z != 1); and lanes whose words are
+    the Fq edge values.  Returns (acc (36, n), leaf (24, n), q (36, n))."""
     from polymath_tpu_torch.ops import curve as C
     from polymath_tpu_torch.ops.cuda_curve import jac_add
     from polymath_tpu_torch.hostmath import bls12_381 as bls
@@ -226,31 +263,47 @@ def point_inputs(dev, n: int):
     q = C.affine_to_jac_words(leaf)
     q[:, 5] = C.jac_identity_words((), None)
     q[:, 6] = acc[:, 6]
+    # edge-word lanes 16 .. 16 + 3E: every coordinate an Fq edge value (not
+    # points of the curve; the formulas and their selects run all the same)
+    e = len(edge_values(bls.Q, 12))
+    lanes = slice(16, 16 + 3 * e)
+    for c in range(3):
+        acc[12 * c:12 * c + 12, lanes] = fq_edge_words(3 * e, c)
+        q[12 * c:12 * c + 12, lanes] = fq_edge_words(3 * e, 3 + c)
+    for c in range(2):
+        leaf[12 * c:12 * c + 12, lanes] = fq_edge_words(3 * e, 3 + c)
     return acc.to(dev), leaf.to(dev), q.to(dev)
 
 
 def scan_inputs(dev, seq: int = 16, windows: int = 4, rows: int = 256):
-    """A fused-scan table of k G (k = 1..1024), then -5G and -9G (T = 1026
-    rows), and step-major (seq, windows, rows) leaf indices, random but for
-    the planted lanes (index T is a dead leaf): 0 all dead; 1 G, 2G, 3G
-    (the leaf equals the running sum, Z != 1); 2 5G, 5G (a duplicate base,
-    Z = 1); 3 5G, -5G (P + (-P)), then 7G; 4 9G, -9G, 9G, 9G (a collision
-    after the identity); 5 live with every fourth leaf dead."""
+    """A fused-scan table of k G (k = 1..1024), then -5G and -9G, then E
+    rows whose words are the Fq edge values (x edge k, y edge k + 1; not
+    points of the curve), and step-major (seq, windows, rows) leaf
+    indices, random but for the planted lanes (index T is a dead leaf):
+    0 all dead; 1 G, 2G, 3G (the leaf equals the running sum, Z != 1);
+    2 5G, 5G (a duplicate base, Z = 1); 3 5G, -5G (P + (-P)), then 7G;
+    4 9G, -9G, 9G, 9G (a collision after the identity); 5 live with every
+    fourth leaf dead; 6 the edge rows in turn."""
     import torch
     from polymath_tpu_torch.hostmath import bls12_381 as bls
     from polymath_tpu_torch.ops import curve as C
     pts = host_points(1024)
     pts += [bls.G1.neg(pts[4]), bls.G1.neg(pts[8])]
-    table = C.points_to_device(pts).T.contiguous()
+    table = C.points_to_device(pts)
+    e = len(edge_values(bls.Q, 12))
+    table = torch.cat([table, torch.cat([fq_edge_words(e, 0),
+                                         fq_edge_words(e, 1)])], dim=1)
+    table = table.T.contiguous()
     t = table.shape[0]
     g = torch.Generator(device="cpu").manual_seed(9)
     idx = torch.randint(0, t + 1, (seq, windows * rows), generator=g)
     idx[:, 0] = t
     idx[:3, 1] = torch.tensor([0, 1, 2])
     idx[:2, 2] = torch.tensor([4, 4])
-    idx[:3, 3] = torch.tensor([4, t - 2, 6])
-    idx[:4, 4] = torch.tensor([8, t - 1, 8, 8])
+    idx[:3, 3] = torch.tensor([4, 1024, 6])
+    idx[:4, 4] = torch.tensor([8, 1025, 8, 8])
     idx[::4, 5] = t
+    idx[:, 6] = 1026 + torch.arange(seq) % e
     return table.to(dev), idx.reshape(seq, windows, rows).to(dev)
 
 
@@ -296,7 +349,8 @@ def host_point(k: int):
 
 def jac_words(ks, seed: int):
     """(36, *ks.shape) Jacobian words of k G with a random Z != 1 (X = x
-    z^2, Y = y z^3); k = 0 is the identity (1, 1, 0)."""
+    z^2, Y = y z^3), but for the first lanes, whose Z words are the Fq edge
+    values (turned by the seed); k = 0 is the identity (1, 1, 0)."""
     import numpy as np
     import torch
     from polymath_tpu_torch.hostmath import bls12_381 as bls
@@ -304,13 +358,18 @@ def jac_words(ks, seed: int):
     rng = np.random.default_rng(seed)
     flat = np.asarray(ks).reshape(-1).tolist()
     cache = {k: host_point(k) for k in set(flat)}
+    # the first lanes' Z words are the nonzero Fq edge values, in an order
+    # that turns with the seed (so another seed gives other words)
+    r_inv = pow(1 << 384, -1, bls.Q)
+    edge_z = [w * r_inv % bls.Q for w in edge_values(bls.Q, 12) if w]
     coords = [[], [], []]
-    for k in flat:
+    for lane, k in enumerate(flat):
         p = cache[k]
         if p is None:
             xyz = (1, 1, 0)
         else:
-            z = int(rng.integers(2, 1 << 62))
+            z = edge_z[(lane + seed) % len(edge_z)] if lane < len(edge_z) \
+                else int(rng.integers(2, 1 << 62))
             xyz = (p[0].v * z * z % bls.Q, p[1].v * z * z * z % bls.Q, z)
         for c, v in zip(coords, xyz):
             c.append(FQ_SPEC.to_mont_int(v))
@@ -414,11 +473,14 @@ def plain_ntt_local(x, tw):
 
 def check_kernels(dev) -> dict:
     """Every kernel against its plain version on the card at moderate
-    shapes that hold the edge cases: 2^16 field elements with 0, 1, p - 1
-    and p - 2; 2^12 points with the identity on either side, a (0, 0)
-    leaf, P + P and P + (-P); a (16, 64, 2048) batch of local NTTs; a
-    (16, 4, 256) fused scan, and the madd scan on its gathered leaves, with
-    the lanes of scan_inputs; the tree kernels on tree_inputs.
+    shapes that hold the edge cases: 2^16 field elements with every pair of
+    the Fr edge values (edge_values); 2^12 points with the identity on
+    either side, a (0, 0) leaf, P + P, P + (-P) and lanes of Fq edge
+    words; a (16, 64, 2048) batch of local NTTs; a (16, 4, 256) fused scan,
+    and the madd scan on its gathered leaves, with the lanes of
+    scan_inputs (edge-word rows among them); the tree kernels on
+    tree_inputs (edge-word Z); the gather at 40,960 rows and at 7,013 rows
+    with the sentinel and indices outside the table.
     Raises on any difference; returns {kernel: largest word error}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
@@ -431,7 +493,7 @@ def check_kernels(dev) -> dict:
         errs[name] = max(errs.get(name, 0), compare(what, got, want))
 
     a = field_inputs(dev, 1 << 16, 1)
-    b = field_inputs(dev, 1 << 16, 2).flip(1).contiguous()
+    b = field_inputs(dev, 1 << 16, 2, role=1)
     note("fr_mul", "fr_mul", cuda_field.fr_mul(a, b), plain_fr_mul(a, b))
     note("fr_mul", "fr_mul broadcast", cuda_field.fr_mul(a, b[:, 5:6]),
          plain_fr_mul(a, b[:, 5:6]))
@@ -503,6 +565,16 @@ def check_kernels(dev) -> dict:
     idx = idx.to(dev)
     note("gather_rows", "gather_rows", cuda_gather.gather_rows(table, idx),
          cuda_gather.gather_rows_plain(table, idx))
+    # a row count that no block of rows divides, the sentinel T and indices
+    # outside the table
+    t = table.shape[0]
+    idx_r = torch.randint(0, t + 1, (7013,), generator=g)
+    idx_r[:6] = torch.tensor([t, -1, t + 5, 1 << 40, -(1 << 40), t - 1])
+    idx_r[-1] = t
+    idx_r = idx_r.to(dev)
+    note("gather_rows", "gather_rows (7013 rows)",
+         cuda_gather.gather_rows(table, idx_r),
+         cuda_gather.gather_rows_plain(table, idx_r))
 
     x = field_inputs(dev, 1 << 12, 6).repeat(1, 32).reshape(8, 64, 2048)
     for inverse in (False, True):
@@ -529,15 +601,19 @@ def measure_kernels(dev, errs: dict) -> dict:
               ops, library=None, cmp=compare):
         # the plain version runs once (it is slow and no yardstick of
         # speed); the kernel is warmed up, then timed over ``reps`` calls;
-        # ``library``, one PyTorch call for the same function, likewise
+        # ``library``, one PyTorch call for the same function, likewise.
+        # two warm-up results are held at once, so that the timed calls
+        # reuse their two blocks and no allocation lands in the timed region
         want, plain_ms = timed_ms(plain, dev)
-        kernel()
+        warm = kernel(), kernel()
+        del warm
         got, kern_ms = timed_ms(kernel, dev, reps)
         err = cmp(name, got, want)
         del got
         lib_ms = None
         if library is not None:
-            library()
+            warm = library(), library()
+            del warm
             got, lib_ms = timed_ms(library, dev, reps)
             compare(f"{name} library call", got.reshape(want.shape), want)
             del got
@@ -599,6 +675,16 @@ def measure_kernels(dev, errs: dict) -> dict:
           lambda: plain_add(acc_l, q_l), 10, 36 * 3 * 4 * lanes,
           ADD_OPS * live)
     del q_l
+    # the shape the prover runs it at: one MSM's (36, 20) window sums plus
+    # the next chunk's (ops/msm.py:290), 20 general lanes; latency-bound
+    acc_w, q_w = acc[:, 100:120].contiguous(), q[:, 100:120].contiguous()
+    cuda_curve.jac_add(acc_w, q_w)
+    got, w_ms = timed_ms(lambda: cuda_curve.jac_add(acc_w, q_w), dev, 50)
+    compare("jac_add (36, 20)", got, plain_add(acc_w, q_w))
+    w_bound, w_by = bound_ms(36 * 3 * 4 * 20, ADD_OPS * 20)
+    out["jac_add"].update(window_sums_ms=w_ms, window_sums_bound_ms=w_bound)
+    print(f"  jac_add at the prover's (36, 20) window sums: {w_ms:.4f} ms, "
+          f"bound {w_bound:.6f} ms ({w_by})", flush=True)
     # no early return: every lane, the identity ones too, does the work
     entry("jac_double", "polymath_tpu_torch/csrc/g1.cu",
           "polymath_tpu/ops/pallas_curve.py:41", "(2^20 lanes)",
@@ -932,12 +1018,13 @@ def measurement_path() -> dict:
     Returns the tools' results, the launches, and the T1/T2 entries of the
     kernels line."""
     from polymath_tpu_torch.tools import (
-        fusedprof, kernel_metrics, pgather_variants, primbench)
+        fusedprof, kernel_metrics, pgather_variants, primbench, productprobe)
     reset_launches()
     pb = primbench.main([])
     gv = pgather_variants.main([])
     km = kernel_metrics.main([])
     fp = fusedprof.main([])
+    pp = productprobe.main([])
     counts = launches(tools=True)
     never = [k for k, v in counts.items() if v == 0]
     if never:
@@ -969,7 +1056,8 @@ def measurement_path() -> dict:
             "launches": counts[name], "ns_per_row": v["ns_per_row"],
             "path": "measurement entry points (phase 5)"})
     return {"primbench": pb, "pgather_variants": gv, "kernel_metrics": km,
-            "fusedprof": fp, "launches": counts, "entries": entries}
+            "fusedprof": fp, "productprobe": pp, "launches": counts,
+            "entries": entries}
 
 
 def main() -> int:
@@ -1009,6 +1097,12 @@ def main() -> int:
           f"(per source {json.dumps({k: round(v, 1) for k, v in built.items()})})",
           flush=True)
     check_ptxas(_build.SOURCES)
+    from polymath_tpu_torch.ops import cuda_scan
+    blocks = cuda_scan.max_blocks(dev)
+    print(f"[1] scan kernels: {blocks} blocks of 64 threads at once "
+          f"({blocks // torch.cuda.get_device_properties(dev).multi_processor_count}"
+          f" an SM); a 2^19-point chunk's 40,960 lanes are "
+          f"{-(-40960 // 64)} blocks", flush=True)
 
     # 2. kernels against their plain versions
     print("[2] kernels against plain versions (0 mismatches required):",
@@ -1059,6 +1153,9 @@ def main() -> int:
           f"{json.dumps(fp['yardsticks_ms'])}; sum split "
           f"{fp['split_sum_ms']:.3f} ms, fused {fp['fused_sum_ms']:.3f} ms; "
           f"phase 5 took {time.time() - t0:.1f} s", flush=True)
+    pp = meas["productprobe"]
+    print(f"[5] productprobe: to_affine {json.dumps(pp['to_affine'])}; SASS "
+          f"of one inlined product {json.dumps(pp['sass'])}", flush=True)
 
     kernels = []
     for name in ALL_KERNELS:

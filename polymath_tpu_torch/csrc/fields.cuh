@@ -6,14 +6,105 @@
 // the JAX package's 16-bit-limb arrays (word k = limb 2k | limb 2k+1 << 16).
 //
 // Every function returns a canonical (fully reduced) value from canonical
-// inputs.  Both moduli leave spare top bits (p < R / 2), so a + b never
-// overflows N words and the CIOS accumulator needs only N + 2 words.
+// inputs.  Both moduli leave spare top bits (2p < R), so a + b and every
+// partial sum of the Montgomery product fit N words and a carry word.
+//
+// The arithmetic is written in PTX carry chains: add.cc / addc,
+// sub.cc / subc and mad.lo.cc / madc.hi.cc, whose carry flag (CC.CF) runs
+// from one instruction to the next.  Each helper below is one instruction;
+// a chain is a run of them with nothing between that touches the flag
+// (asm volatile keeps their order).  Built with a host compiler instead of
+// nvcc, the same helpers emulate the instructions on a host carry flag, so
+// the CPU tests run this exact schedule (tests/test_torch_fields.py).
 //
 // Data layout in device memory: "limb-major" -- word k of element i of a
 // (K, M) tensor sits at ptr[k * stride + i], so neighbouring threads read
 // neighbouring addresses for every word.
 #pragma once
 #include <stdint.h>
+
+#ifdef __CUDACC__
+#define PM_CHAIN(op, ...)                                         \
+  uint32_t r;                                                     \
+  asm volatile(op : "=r"(r) : __VA_ARGS__);                       \
+  return r;
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  PM_CHAIN("add.cc.u32 %0, %1, %2;", "r"(a), "r"(b))
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  PM_CHAIN("addc.cc.u32 %0, %1, %2;", "r"(a), "r"(b))
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  PM_CHAIN("addc.u32 %0, %1, %2;", "r"(a), "r"(b))
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  PM_CHAIN("sub.cc.u32 %0, %1, %2;", "r"(a), "r"(b))
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  PM_CHAIN("subc.cc.u32 %0, %1, %2;", "r"(a), "r"(b))
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  PM_CHAIN("subc.u32 %0, %1, %2;", "r"(a), "r"(b))
+}
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  PM_CHAIN("mad.lo.cc.u32 %0, %1, %2, %3;", "r"(a), "r"(b), "r"(c))
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  PM_CHAIN("madc.lo.cc.u32 %0, %1, %2, %3;", "r"(a), "r"(b), "r"(c))
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  PM_CHAIN("madc.hi.cc.u32 %0, %1, %2, %3;", "r"(a), "r"(b), "r"(c))
+}
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b,
+                                            uint32_t c) {
+  PM_CHAIN("madc.hi.u32 %0, %1, %2, %3;", "r"(a), "r"(b), "r"(c))
+}
+#undef PM_CHAIN
+__device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return __umulhi(a, b);
+}
+#else  // host emulation of the same instructions (the CPU tests)
+#define __device__
+#define __forceinline__ inline
+inline uint32_t pm_cf = 0;  // CC.CF
+inline uint32_t pm_set(uint64_t s) {
+  pm_cf = (uint32_t)(s >> 32) & 1;
+  return (uint32_t)s;
+}
+inline uint32_t pm_lo(uint32_t a, uint32_t b) { return a * b; }
+inline uint32_t mul_hi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+inline uint32_t add_cc(uint32_t a, uint32_t b) {
+  return pm_set((uint64_t)a + b);
+}
+inline uint32_t addc_cc(uint32_t a, uint32_t b) {
+  return pm_set((uint64_t)a + b + pm_cf);
+}
+inline uint32_t addc(uint32_t a, uint32_t b) { return a + b + pm_cf; }
+inline uint32_t sub_cc(uint32_t a, uint32_t b) {  // CF = borrow out
+  return pm_set((uint64_t)a - b);
+}
+inline uint32_t subc_cc(uint32_t a, uint32_t b) {
+  return pm_set((uint64_t)a - b - pm_cf);
+}
+inline uint32_t subc(uint32_t a, uint32_t b) { return a - b - pm_cf; }
+inline uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return pm_set((uint64_t)pm_lo(a, b) + c);
+}
+inline uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return pm_set((uint64_t)pm_lo(a, b) + c + pm_cf);
+}
+inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  return pm_set((uint64_t)mul_hi(a, b) + c + pm_cf);
+}
+inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  return mul_hi(a, b) + c + pm_cf;
+}
+#endif
 
 struct FrP {
   static constexpr int N = 8;
@@ -90,155 +181,156 @@ __device__ __forceinline__ bool fe_eq(const Fe<F>& a, const Fe<F>& b) {
   return acc == 0;
 }
 
-// t (N words + carry word hi) -> t mod p, given t < 2p.
+// t (N words + carry word hi) -> t mod p, given t < 2p: t - p in one
+// borrow chain, kept unless it borrowed past hi.
 template <class F>
 __device__ __forceinline__ Fe<F> fe_reduce_once(const uint32_t* t,
                                                 uint32_t hi) {
-  Fe<F> d;
-  uint64_t borrow = 0;
+  constexpr int N = F::N;
+  uint32_t d[N];
+  d[0] = sub_cc(t[0], F::p(0));
 #pragma unroll
-  for (int k = 0; k < F::N; ++k) {
-    uint64_t s = (uint64_t)t[k] - F::p(k) - borrow;
-    d.w[k] = (uint32_t)s;
-    borrow = (s >> 32) & 1;
-  }
-  const bool keep = (hi == 0) && borrow;  // t < p
+  for (int k = 1; k < N; ++k) d[k] = subc_cc(t[k], F::p(k));
+  const uint32_t keep = subc(hi, 0);  // all ones iff t < p
   Fe<F> r;
 #pragma unroll
-  for (int k = 0; k < F::N; ++k) r.w[k] = keep ? t[k] : d.w[k];
+  for (int k = 0; k < N; ++k) r.w[k] = (t[k] & keep) | (d[k] & ~keep);
   return r;
 }
 
 template <class F>
 __device__ __forceinline__ Fe<F> fe_add(const Fe<F>& a, const Fe<F>& b) {
-  uint32_t t[F::N];
-  uint64_t c = 0;
+  constexpr int N = F::N;
+  uint32_t t[N];
+  t[0] = add_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < F::N; ++k) {
-    uint64_t s = (uint64_t)a.w[k] + b.w[k] + c;
-    t[k] = (uint32_t)s;
-    c = s >> 32;
-  }
-  return fe_reduce_once<F>(t, (uint32_t)c);
+  for (int k = 1; k < N; ++k) t[k] = addc_cc(a.w[k], b.w[k]);
+  return fe_reduce_once<F>(t, addc(0, 0));
 }
 
+// a - b, plus p where that borrowed (p masked by the borrow, no branch).
 template <class F>
 __device__ __forceinline__ Fe<F> fe_sub(const Fe<F>& a, const Fe<F>& b) {
+  constexpr int N = F::N;
   Fe<F> d;
-  uint64_t borrow = 0;
+  d.w[0] = sub_cc(a.w[0], b.w[0]);
 #pragma unroll
-  for (int k = 0; k < F::N; ++k) {
-    uint64_t s = (uint64_t)a.w[k] - b.w[k] - borrow;
-    d.w[k] = (uint32_t)s;
-    borrow = (s >> 32) & 1;
-  }
-  if (borrow) {  // a < b: add p back
-    uint64_t c = 0;
+  for (int k = 1; k < N; ++k) d.w[k] = subc_cc(a.w[k], b.w[k]);
+  const uint32_t mask = subc(0, 0);  // all ones iff a < b
+  d.w[0] = add_cc(d.w[0], F::p(0) & mask);
 #pragma unroll
-    for (int k = 0; k < F::N; ++k) {
-      uint64_t s = (uint64_t)d.w[k] + F::p(k) + c;
-      d.w[k] = (uint32_t)s;
-      c = s >> 32;
-    }
-  }
+  for (int k = 1; k < N - 1; ++k) d.w[k] = addc_cc(d.w[k], F::p(k) & mask);
+  d.w[N - 1] = addc(d.w[N - 1], F::p(N - 1) & mask);
   return d;
 }
 
-// CIOS Montgomery product a * b * 2^(-32 N) mod p.
+// -- the Montgomery product ---------------------------------------------------
+//
+// CIOS (one word of b at a time, each followed by one reduction step) with
+// the columns split by parity.  The product a[j] * b_i lands in words j
+// (low half) and j + 1 (high half); summing only the even j gives words
+// 0 .. N-1 with one product word each, the odd j words 1 .. N.  So the
+// state is two accumulators, "even" (words 0 .. N-1) and "odd" (words
+// 1 .. N), and each adds a row of products in a single chain of N
+// mad.lo.cc / madc.hi.cc, one instruction a product word, where one array
+// would need a second chain for the high halves.  The chains of the two
+// arrays do not feed each other within a step.
+//
+// After a step the even array's word 0 is zero (that is what the reduction
+// digit m is for) and the value is divided by 2^32: the odd array, now at
+// words 0 .. N-1, becomes the next step's even one, and the old even one,
+// now at words -1 .. N-2, is added into the next odd one as it is formed
+// (madc_n_rshift): the two swap roles every step, with no merge pass
+// until the end.  Every partial sum is below 2^32 * 2p < 2^(32 (N + 1)),
+// so the carries the chains drop out of the top are zero.
+
+// acc[j], acc[j+1] = lo, hi (a[j] * bi) for j = 0, 2, ..., n - 2
+template <int n>
+__device__ __forceinline__ void mul_n(uint32_t* acc, const uint32_t* a,
+                                      uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < n; j += 2) {
+    acc[j] = a[j] * bi;
+    acc[j + 1] = mul_hi(a[j], bi);
+  }
+}
+
+// acc += lo, hi (a[j] * bi) at j, j + 1 (j even); the carry out is left in
+// CC.CF
+template <int n>
+__device__ __forceinline__ void cmad_n(uint32_t* acc, const uint32_t* a,
+                                       uint32_t bi) {
+  acc[0] = mad_lo_cc(a[0], bi, acc[0]);
+  acc[1] = madc_hi_cc(a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < n; j += 2) {
+    acc[j] = madc_lo_cc(a[j], bi, acc[j]);
+    acc[j + 1] = madc_hi_cc(a[j], bi, acc[j + 1]);
+  }
+}
+
+// odd = odd shifted down two words + lo, hi (a[j] * bi) at j, j + 1, with
+// the carry in CC.CF taken in at word 0
+template <int n>
+__device__ __forceinline__ void madc_n_rshift(uint32_t* odd,
+                                              const uint32_t* a,
+                                              uint32_t bi) {
+#pragma unroll
+  for (int j = 0; j < n - 2; j += 2) {
+    odd[j] = madc_lo_cc(a[j], bi, odd[j + 2]);
+    odd[j + 1] = madc_hi_cc(a[j], bi, odd[j + 3]);
+  }
+  odd[n - 2] = madc_lo_cc(a[n - 2], bi, 0);
+  odd[n - 1] = madc_hi(a[n - 2], bi, 0);
+}
+
+// One step: (even, odd) += a * bi + m * p, with m the reduction digit that
+// clears word 0; after it ``even`` holds words 0 .. N-1 (word 0 zero) and
+// ``odd`` words 1 .. N.  The first step starts from nothing; every other
+// takes the previous step's arrays with their roles swapped: ``even`` (the
+// previous odd) at words 0 .. N-1, ``odd`` (the previous even) at -1 .. N-2.
+template <class F>
+__device__ __forceinline__ void mad_n_redc(uint32_t* even, uint32_t* odd,
+                                           const uint32_t* a, uint32_t bi,
+                                           const uint32_t* p, bool first) {
+  constexpr int N = F::N;
+  if (first) {
+    mul_n<N>(odd, a + 1, bi);
+    mul_n<N>(even, a, bi);
+  } else {
+    even[0] = add_cc(even[0], odd[1]);
+    madc_n_rshift<N>(odd, a + 1, bi);
+    cmad_n<N>(even, a, bi);
+    odd[N - 1] = addc(odd[N - 1], 0);
+  }
+  const uint32_t m = even[0] * F::N0;
+  cmad_n<N>(odd, p + 1, m);
+  cmad_n<N>(even, p, m);
+  odd[N - 1] = addc(odd[N - 1], 0);
+}
+
+// Montgomery product a * b * 2^(-32 N) mod p.
 template <class F>
 __device__ __forceinline__ Fe<F> fe_mul(const Fe<F>& a, const Fe<F>& b) {
   constexpr int N = F::N;
-  uint32_t t[N + 2];
+  uint32_t p[N], even[N], odd[N];
 #pragma unroll
-  for (int k = 0; k < N + 2; ++k) t[k] = 0;
+  for (int k = 0; k < N; ++k) p[k] = F::p(k);
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      uint64_t s = (uint64_t)a.w[i] * b.w[j] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[N] + c;
-    t[N] = (uint32_t)s;
-    t[N + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * F::N0;
-    s = (uint64_t)m * F::p(0) + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < N; ++j) {
-      s = (uint64_t)m * F::p(j) + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[N] + c;
-    t[N - 1] = (uint32_t)s;
-    t[N] = t[N + 1] + (uint32_t)(s >> 32);
+  for (int i = 0; i < N; i += 2) {
+    mad_n_redc<F>(even, odd, a.w, b.w[i], p, i == 0);
+    mad_n_redc<F>(odd, even, a.w, b.w[i + 1], p, false);
   }
-  return fe_reduce_once<F>(t, t[N]);
+  // the last step left even at words 0 .. N-1 and odd at -1 .. N-2
+  even[0] = add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int k = 1; k < N - 1; ++k) even[k] = addc_cc(even[k], odd[k + 1]);
+  even[N - 1] = addc(even[N - 1], 0);
+  return fe_reduce_once<F>(even, 0);
 }
 
-// Montgomery square: the 2N-word square with each cross product a_i a_j
-// (j > i) computed once and doubled, then N reduction steps (SOS).
+// Montgomery square.
 template <class F>
 __device__ __forceinline__ Fe<F> fe_sqr(const Fe<F>& a) {
-  constexpr int N = F::N;
-  uint32_t t[2 * N + 1];
-#pragma unroll
-  for (int k = 0; k < 2 * N + 1; ++k) t[k] = 0;
-  // cross products
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = i + 1; j < N; ++j) {
-      uint64_t s = (uint64_t)a.w[i] * a.w[j] + t[i + j] + c;
-      t[i + j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    t[i + N] = (uint32_t)c;
-  }
-  // double
-  uint32_t top = 0;
-#pragma unroll
-  for (int k = 2 * N - 1; k > 0; --k) {
-    uint32_t v = t[k];
-    t[k] = (v << 1) | (t[k - 1] >> 31);
-    if (k == 2 * N - 1) top = v >> 31;
-  }
-  t[0] = t[0] << 1;
-  t[2 * N] = top;
-  // diagonal squares
-  uint64_t c = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uint64_t sq = (uint64_t)a.w[i] * a.w[i];
-    uint64_t s = (uint64_t)t[2 * i] + (uint32_t)sq + c;
-    t[2 * i] = (uint32_t)s;
-    s = (uint64_t)t[2 * i + 1] + (uint32_t)(sq >> 32) + (s >> 32);
-    t[2 * i + 1] = (uint32_t)s;
-    c = s >> 32;
-  }
-  t[2 * N] += (uint32_t)c;
-  // reduction
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t m = t[i] * F::N0;
-    uint64_t cc = 0;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      uint64_t s = (uint64_t)m * F::p(j) + t[i + j] + cc;
-      t[i + j] = (uint32_t)s;
-      cc = s >> 32;
-    }
-    // propagate the carry through the upper words
-#pragma unroll
-    for (int k = i + N; k < 2 * N + 1; ++k) {
-      uint64_t s = (uint64_t)t[k] + cc;
-      t[k] = (uint32_t)s;
-      cc = s >> 32;
-    }
-  }
-  return fe_reduce_once<F>(t + N, t[2 * N]);
+  return fe_mul<F>(a, a);
 }

@@ -10,7 +10,7 @@
 // in eager PyTorch that is ~570 Fq products per point as separate launches.
 // The fused MSM bucket scan (B7) is in scan.cu; the formulas in g1.cuh.
 //
-// One thread per point.
+// One thread per point, but for the gather (below).
 //
 // Bound on the H100: integer multiplies.  A madd is 11 Fq products (8M+3S),
 // a general add 16, each ~2*144 wide 32x32 products; the 36+24 words of
@@ -50,53 +50,68 @@ g1_madd_kernel(const uint32_t* p, long p_stride, const uint32_t* leaf,
   if (coll) err[i] = 1;
 }
 
-// out[:, j] = table[idx[j], :] (limb-major); idx == T gives the zero row,
-// the affine identity.  Each 96-byte row is read as six 16-byte vectors.
-__global__ void g1_gather_kernel(const uint4* table, long T,
-                                 const int64_t* idx, uint32_t* out,
-                                 long out_stride, long m) {
-  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  const long r = idx[j];
-  uint32_t w[24];
-  if (r >= 0 && r < T) {
+// B4: out[:, j] = table[idx[j], :] (limb-major); an index outside [0, T)
+// (the prover's T for a dead leaf) gives the zero row, the affine identity.
+// Bound: bytes (the rows read, 96 B a row, and written limb-major, plus
+// 8 B of index a row).  The layout is T1's rowload (gather_variants.cu,
+// measured faster than a thread per row): a block is 32 rows x 6 warps, a
+// warp per 16-byte vector of the 96-byte row, so a warp reads one vector
+// of 32 rows and stores 4 words of each row coalesced, across the warp.
+// Each thread puts U = 2 rows' loads in flight before its first store
+// (2, 4 and 8 measured within 1-3% of each other at the prover's shape,
+// 16 slower; 2 takes the fewest registers).
+constexpr int kGatherU = 2;
+
+__global__ void __launch_bounds__(32 * 6)
+g1_gather_kernel(const uint4* __restrict__ table, long T,
+                 const int64_t* __restrict__ idx, uint32_t* __restrict__ out,
+                 long out_stride, long m) {
+  const int r = threadIdx.x, v = threadIdx.y;
+  const long base = (long)blockIdx.x * (32 * kGatherU) + r;
+  uint4 w[kGatherU];
 #pragma unroll
-    for (int v = 0; v < 6; ++v) {
-      uint4 q = table[r * 6 + v];
-      w[4 * v] = q.x;
-      w[4 * v + 1] = q.y;
-      w[4 * v + 2] = q.z;
-      w[4 * v + 3] = q.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < 24; ++k) w[k] = 0;
+  for (int u = 0; u < kGatherU; ++u) {
+    const long j = base + u * 32;
+    const long row = j < m ? idx[j] : T;
+    w[u] = row >= 0 && row < T ? table[row * 6 + v] : make_uint4(0, 0, 0, 0);
   }
+  uint32_t* o = out + 4 * v * out_stride;
 #pragma unroll
-  for (int k = 0; k < 24; ++k) out[k * out_stride + j] = w[k];
+  for (int u = 0; u < kGatherU; ++u) {
+    const long j = base + u * 32;
+    if (j < m) {
+      o[j] = w[u].x;
+      o[out_stride + j] = w[u].y;
+      o[2 * out_stride + j] = w[u].z;
+      o[3 * out_stride + j] = w[u].w;
+    }
+  }
 }
 
 // Jacobian -> affine by a per-thread Fermat inversion of Z (Z^(q-2));
-// Z == 0 gives (0, 0), the affine identity.
+// Z == 0 gives (0, 0), the affine identity.  X and Y are loaded only
+// after the inversion, so that they hold no registers across its loop.
 __global__ void __launch_bounds__(kThreads)
 g1_to_affine_kernel(const uint32_t* p, long p_stride, uint32_t* out,
                     long out_stride, long m) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  Jac a = load_jac(p, p_stride, i);
+  const Fq z = fe_load<FqP>(p + 24 * p_stride, p_stride, i);
   Fq zinv = fq_one();
   // q - 2, most significant word first; left-to-right square-and-multiply
   for (int k = FqP::N - 1; k >= 0; --k) {
     const uint32_t e = FqP::p(k) - (k == 0 ? 2u : 0u);
     for (int b = 31; b >= 0; --b) {
       zinv = fe_sqr<FqP>(zinv);
-      if ((e >> b) & 1u) zinv = fe_mul<FqP>(zinv, a.z);
+      if ((e >> b) & 1u) zinv = fe_mul<FqP>(zinv, z);
     }
   }
-  Fq zinv2 = fe_sqr<FqP>(zinv);
-  fe_store<FqP>(out, out_stride, i, fe_mul<FqP>(a.x, zinv2));
+  const Fq zinv2 = fe_sqr<FqP>(zinv);
+  const Fq x = fe_load<FqP>(p, p_stride, i);
+  fe_store<FqP>(out, out_stride, i, fe_mul<FqP>(x, zinv2));
+  const Fq y = fe_load<FqP>(p + 12 * p_stride, p_stride, i);
   fe_store<FqP>(out + 12 * out_stride, out_stride, i,
-                fe_mul<FqP>(a.y, fe_mul<FqP>(zinv2, zinv)));
+                fe_mul<FqP>(y, fe_mul<FqP>(zinv2, zinv)));
 }
 
 // dbl-2009-l on every lane, with no early return: an identity input
@@ -143,7 +158,8 @@ extern "C" int pm_g1_gather(const void* table, long T, const void* idx,
                             void* out, long out_stride, long m,
                             void* stream) {
   if (m > 0)
-    g1_gather_kernel<<<blocks_for(m, 256), 256, 0, (cudaStream_t)stream>>>(
+    g1_gather_kernel<<<blocks_for(m, 32 * kGatherU), dim3(32, 6), 0,
+                       (cudaStream_t)stream>>>(
         (const uint4*)table, T, (const int64_t*)idx, (uint32_t*)out,
         out_stride, m);
   return (int)cudaGetLastError();

@@ -3,18 +3,25 @@
 Built lazily with g++ into ``libpolymath_native.so``; all entry points have
 pure-Python fallbacks, so the package works without a toolchain.  Use
 ``native_available()`` to check, ``ensure_built()`` to force a build.
+
+The library is compiled for the host's own CPU (``-march=native``), so a
+sidecar beside it (``libpolymath_native.so.build.json``) records the g++
+command and the host's CPU flags (from /proc/cpuinfo); a library whose
+sidecar differs, as on a host with another CPU, is rebuilt.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import json
 import os
 import subprocess
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_DIR, "libpolymath_native.so")
+_SIDECAR = _SO + ".build.json"
 _SOURCES = [os.path.join(_DIR, "hashes.cpp"), os.path.join(_DIR, "pairing.cpp")]
 
 _lock = threading.Lock()
@@ -22,8 +29,39 @@ _lib = None
 _build_failed = False
 
 
+def _command(out: str) -> list:
+    # -march=native: the pairing/MSM hot loops are 64x64->128 mul chains
+    # (CIOS); letting gcc use ADX/BMI2 on the build host is worth ~15-20% of
+    # verify latency.  The .so is machine-local (never shipped), and the
+    # sidecar ties it to this host's CPU.
+    return ["g++", "-O3", "-march=native", "-funroll-loops", "-shared",
+            "-fPIC", "-o", out] + _SOURCES
+
+
+def _cpu_flags() -> list:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return sorted(line.split(":", 1)[1].split())
+    except OSError:
+        pass
+    return []
+
+
+def _build_id() -> dict:
+    """What the library must have been built with to be reused here."""
+    return {"command": _command(_SO), "cpu_flags": _cpu_flags()}
+
+
 def _fresh(newest_src: float) -> bool:
-    return os.path.exists(_SO) and os.path.getmtime(_SO) >= newest_src
+    if not os.path.exists(_SO) or os.path.getmtime(_SO) < newest_src:
+        return False
+    try:
+        with open(_SIDECAR) as f:
+            return json.load(f) == _build_id()
+    except (OSError, ValueError):
+        return False
 
 
 def _build() -> bool:
@@ -39,14 +77,12 @@ def _build() -> bool:
             if _fresh(newest_src):
                 return True
             tmp = f"{_SO}.{os.getpid()}.tmp"
-            # -march=native: the pairing/MSM hot loops are 64x64->128 mul
-            # chains (CIOS); letting gcc use ADX/BMI2 on the build host is
-            # worth ~15-20% of verify latency.  The .so is machine-local
-            # (never shipped), so native codegen is safe.
-            cmd = ["g++", "-O3", "-march=native", "-funroll-loops",
-                   "-shared", "-fPIC", "-o", tmp] + _SOURCES
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+            subprocess.run(_command(tmp), check=True, capture_output=True,
+                           timeout=300)
             os.replace(tmp, _SO)
+            with open(tmp, "w") as f:
+                json.dump(_build_id(), f)
+            os.replace(tmp, _SIDECAR)
         return True
     except Exception:
         return False

@@ -2,9 +2,17 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into ``build/lib<name>.so`` at
 first use, with a plain C interface (no PyTorch headers, so a build takes
-seconds).  ``build_all()`` starts one ``nvcc`` per source at once; a
-library is rebuilt only when it is older than its sources or its ptxas
-report (``build/lib<name>.ptxas.txt``, kept beside it) is missing.
+seconds).  ``build_all()`` starts one ``nvcc`` per source at once.
+
+A build is safe across processes: each library is built under an
+exclusive file lock (``build/lib<name>.lock``), compiled to a temporary
+name and renamed into place, so no process loads a half-written file and
+two processes never both compile it.  Beside each library lie its ptxas
+report (``build/lib<name>.ptxas.txt``) and its stamp
+(``build/lib<name>.stamp.json``): the full nvcc command, the output of
+``nvcc --version`` and a SHA-256 of the ``.cu`` source and of every
+``csrc/*.cuh`` header.  A library whose stamp differs from the one the
+current sources, flags and toolkit would give is stale and is rebuilt.
 Nothing here runs at import time: this module is imported on machines
 without nvcc.
 """
@@ -12,6 +20,9 @@ without nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
+import json
 import math
 import os
 import subprocess
@@ -56,43 +67,101 @@ def ptxas_report(name: str) -> str:
         return f.read()
 
 
+def stamp_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.stamp.json")
+
+
+def _command(name: str, out: str) -> list:
+    return [cuda_tool("nvcc")] + NVCC_FLAGS + [
+        "-o", out, os.path.join(CSRC, f"{name}.cu")]
+
+
+_nvcc_version: dict = {}
+
+
+def _toolkit() -> str:
+    """``nvcc --version`` of the nvcc that builds, read once a process."""
+    nvcc = cuda_tool("nvcc")
+    if nvcc not in _nvcc_version:
+        _nvcc_version[nvcc] = subprocess.run(
+            [nvcc, "--version"], capture_output=True, text=True,
+            check=True).stdout
+    return _nvcc_version[nvcc]
+
+
+def stamp(name: str) -> dict:
+    """What a fresh ``lib<name>.so`` was built from: the command (with the
+    final library path), the toolkit, and the hash of the source and of
+    every header."""
+    digest = hashlib.sha256()
+    deps = [f"{name}.cu"] + sorted(h for h in os.listdir(CSRC)
+                                   if h.endswith(".cuh"))
+    for dep in deps:
+        with open(os.path.join(CSRC, dep), "rb") as f:
+            digest.update(dep.encode() + b"\0" + f.read() + b"\0")
+    return {"command": _command(name, library_path(name)),
+            "nvcc_version": _toolkit(), "sources_sha256": digest.hexdigest()}
+
+
 def _stale(name: str) -> bool:
-    so = library_path(name)
-    if not os.path.exists(so) or not os.path.exists(report_path(name)):
+    if not (os.path.exists(library_path(name))
+            and os.path.exists(report_path(name))):
         return True
-    deps = [os.path.join(CSRC, f"{name}.cu")] + [
-        os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
-    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
+    try:
+        with open(stamp_path(name)) as f:
+            return json.load(f) != stamp(name)
+    except (OSError, ValueError):
+        return True
 
 
-def _start(name: str):
-    os.makedirs(BUILD, exist_ok=True)
-    cmd = [cuda_tool("nvcc")] + NVCC_FLAGS + [
-        "-o", library_path(name), os.path.join(CSRC, f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+def _write(path: str, text: str) -> None:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
 
 
 def build_all(names=SOURCES) -> dict:
-    """Compile every stale source in parallel; raises on any failure.
-    Returns {name: seconds} for the sources it built."""
+    """Compile every stale source in parallel, each under its file lock;
+    raises on any failure.  Returns {name: seconds} for the sources this
+    process built (a source another process built meanwhile is skipped)."""
+    os.makedirs(BUILD, exist_ok=True)
     t0 = time.time()
-    procs = {n: _start(n) for n in names if _stale(n)}
+    locks, procs = [], {}
+    try:
+        for n in names:
+            if not _stale(n):
+                continue
+            lock = open(os.path.join(BUILD, f"lib{n}.lock"), "w")
+            locks.append(lock)
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not _stale(n):  # built by another process while we waited
+                continue
+            tmp = f"{library_path(n)}.{os.getpid()}.tmp"
+            procs[n] = (tmp, stamp(n), subprocess.Popen(
+                _command(n, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
 
-    def finish(n, p):
-        out, _ = p.communicate()
-        build_log[n] = (time.time() - t0, out)
-        if p.returncode == 0:
-            with open(report_path(n), "w") as f:
-                f.write(out)
+        def finish(n, tmp, made_from, p):
+            out, _ = p.communicate()
+            build_log[n] = (time.time() - t0, out)
+            if p.returncode == 0:
+                os.replace(tmp, library_path(n))
+                _write(report_path(n), out)
+                _write(stamp_path(n), json.dumps(made_from, indent=1))
+            elif os.path.exists(tmp):
+                os.remove(tmp)
 
-    waits = [threading.Thread(target=finish, args=item)
-             for item in procs.items()]
-    for w in waits:
-        w.start()
-    for w in waits:
-        w.join()
-    failed = [f"{n}.cu:\n{build_log[n][1]}" for n, p in procs.items()
+        waits = [threading.Thread(target=finish, args=(n,) + item)
+                 for n, item in procs.items()]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+    finally:
+        for lock in locks:
+            lock.close()
+    failed = [f"{n}.cu:\n{build_log[n][1]}" for n, (_, _, p) in procs.items()
               if p.returncode != 0]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -2,11 +2,11 @@
 pallas_gather.py).
 
 ``gather_rows(table, idx)``: table (T, 24) int32 affine rows (x words then
-y words, row-major), idx int64 of any shape with values in [0, T].  Returns
+y words, row-major), idx int64 of any shape.  Returns
 (24, *idx.shape), limb-major, with out[:, j] = table[idx[j]] and index T
-giving the zero row (the affine identity) without a sentinel row in the
-table.  On a CUDA table it launches csrc/g1.cu's gather kernel; on the CPU
-it runs the plain torch gather.
+(or any index outside [0, T)) giving the zero row (the affine identity)
+without a sentinel row in the table.  On a CUDA table it launches
+csrc/g1.cu's gather kernel; on the CPU it runs the plain torch gather.
 """
 
 from __future__ import annotations
@@ -24,13 +24,16 @@ LAUNCHES = {"gather_rows": 0}
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    t = table.shape[0]
     ext = torch.cat([table, torch.zeros((1, ROW), dtype=table.dtype,
                                         device=table.device)])
-    g = ext[idx.reshape(-1)]                       # (M, 24)
+    flat = idx.reshape(-1)
+    g = ext[torch.where((flat >= 0) & (flat < t), flat, t)]   # (M, 24)
     return g.T.reshape((ROW,) + tuple(idx.shape))
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The point gather (module docstring)."""
     if table.dim() != 2 or table.shape[1] != ROW:
         raise ValueError(f"gather_rows: table must be (T, {ROW}), got "
                          f"{tuple(table.shape)}")

@@ -28,6 +28,7 @@ they run the plain version, one ``jac_madd_core`` over all lanes per step.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -40,6 +41,19 @@ from .curve import (
 
 #: launches since the last reset (read by chip_smoke.py)
 LAUNCHES = {"madd_scan": 0, "fused_scan": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def max_blocks(dev: torch.device) -> int:
+    """The most blocks of a scan kernel the card holds at once: the
+    occupancy API's blocks per SM (registers and shared memory, the least
+    over the two kernels) times the SMs; asked once a card.  The kernels
+    walk the lanes with a grid stride, so a launch never asks for more."""
+    with torch.cuda.device(dev):
+        per_sm = _build.declare(_build.lib("scan").pm_scan_blocks_per_sm, 0)()
+    if per_sm <= 0:
+        raise RuntimeError(f"scan kernels: no block fits an SM of {dev}")
+    return per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _outputs(shape, device, fast, out, err, what):
@@ -95,10 +109,11 @@ def madd_scan(leaves: torch.Tensor, fast: bool,
     leaves = leaves.contiguous()
     seq, lanes, out, err = _outputs(leaves.shape[1:], leaves.device, fast,
                                     out, err, "madd_scan")
-    fn = _build.declare(_build.lib("scan").pm_g1_madd_scan, 7)
+    fn = _build.declare(_build.lib("scan").pm_g1_madd_scan, 8)
     _build.check(fn(leaves.data_ptr(), out.data_ptr(),
                     err.data_ptr() if fast else 0, int(fast), seq, lanes,
-                    _build.stream(out)), "madd_scan")
+                    max_blocks(leaves.device), _build.stream(out)),
+                 "madd_scan")
     LAUNCHES["madd_scan"] += 1
     return out, err
 
@@ -133,9 +148,10 @@ def fused_scan_msm(table: torch.Tensor, idx: torch.Tensor, fast: bool,
     idx = idx.contiguous()
     seq, lanes, out, err = _outputs(idx.shape, idx.device, fast, out, err,
                                     "fused_scan_msm")
-    fn = _build.declare(_build.lib("scan").pm_g1_scan_msm, 9)
+    fn = _build.declare(_build.lib("scan").pm_g1_scan_msm, 10)
     _build.check(fn(table.data_ptr(), table.shape[0], idx.data_ptr(),
                     out.data_ptr(), err.data_ptr() if fast else 0, int(fast),
-                    seq, lanes, _build.stream(out)), "fused_scan_msm")
+                    seq, lanes, max_blocks(idx.device), _build.stream(out)),
+                 "fused_scan_msm")
     LAUNCHES["fused_scan"] += 1
     return out, err

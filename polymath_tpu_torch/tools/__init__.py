@@ -11,7 +11,10 @@ and has ``main(argv=None) -> dict``, which returns what it prints:
   permutation (csrc/gather_variants.cu);
 * ``kernel_metrics``: NTT elements/s at 2^20 and 2^22, MSM points/s at
   2^20, with a host-oracle check;
-* ``fusedprof``: each stage of one MSM chunk timed on its own.
+* ``fusedprof``: each stage of one MSM chunk timed on its own;
+* ``productprobe``: what one Montgomery product costs (``to_affine`` at
+  the scans' lane count and at a full card, and the SASS instructions of
+  one inlined product).
 
 ``--device cuda`` (the default) raises when no card is visible; ``--device
 cpu`` runs the kernels' plain versions, and every time it reports is then

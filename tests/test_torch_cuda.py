@@ -150,3 +150,19 @@ def test_gather_variants_match_plain_versions(card, variant):
     idx[:3] = torch.tensor([-1, 4 * quad.shape[0], 4 * quad.shape[0] - 1])
     assert GV.mismatches(GV.gather_variant(v, quad, idx),
                          GV.gather_variant_plain(v, quad, idx)) == 0
+
+
+def test_gather_rows_ragged_with_out_of_range_indices(card):
+    """B4 at a row count that no block of rows divides, with the
+    sentinel T and indices outside the table in both directions."""
+    from polymath_tpu_torch.ops import cuda_gather
+    from polymath_tpu_torch.ops.curve import points_to_device
+    table = points_to_device(chip_smoke.host_points(300)).T.contiguous()
+    t = table.shape[0]
+    g = torch.Generator().manual_seed(2)
+    idx = torch.randint(-20, t + 20, (3, 1001), generator=g)
+    idx[0, :4] = torch.tensor([t, -1, 1 << 40, -(1 << 40)])
+    table, idx = table.to(card), idx.to(card)
+    got = cuda_gather.gather_rows(table, idx)
+    assert torch.equal(got, cuda_gather.gather_rows_plain(table, idx))
+    assert not bool(got[:, 0, :2].any()) and bool(got[:, 1].any())

@@ -30,7 +30,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import tools.pgather_variants as PV
-from polymath_tpu_torch.tools import fusedprof, kernel_metrics
+from polymath_tpu_torch.tools import fusedprof, kernel_metrics, productprobe
 from polymath_tpu_torch.tools import pgather_variants as GV
 from polymath_tpu_torch.tools import primbench as PB
 
@@ -217,9 +217,20 @@ def test_fusedprof_stages_compose_to_msm_chunk():
         "msm_chunk split", "msm_chunk fused"} == set(res["stages_ms"])
 
 
-@pytest.mark.parametrize("tool", [PB, GV, kernel_metrics, fusedprof],
+def test_productprobe_small():
+    """The probe's to_affine lanes at two small counts on the CPU (no SASS
+    without nvcc); its own check holds them against the plain version."""
+    res = productprobe.main(["--device", "cpu", "--lanes", "16,64",
+                             "--reps", "1"])
+    assert set(res["to_affine"]) == {"16", "64"}
+    assert res["chain"] == 385 + 232 and res["sass"] is None
+    assert all(v["ns_per_step"] > 0 for v in res["to_affine"].values())
+
+
+@pytest.mark.parametrize("tool", [PB, GV, kernel_metrics, fusedprof,
+                                  productprobe],
                          ids=["primbench", "pgather_variants",
-                              "kernel_metrics", "fusedprof"])
+                              "kernel_metrics", "fusedprof", "productprobe"])
 def test_tools_need_a_card_or_an_explicit_cpu(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
