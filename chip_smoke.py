@@ -11,9 +11,11 @@ Phases, each printing what it found:
    failing on any spill in any source (the report is read from the file
    each build leaves beside its library, so a cached build is checked
    too), and the blocks of the scan kernels the card holds at once;
-2. kernels: every kernel (B1-B9, the port-only to_affine, and the
-   one-launch madd scan and the two tree kernels that the MSM runs in the
-   place of per-step jac_madd and per-launch jac_add) against its plain
+2. kernels: every kernel (B1-B9, the port-only to_affine, the one-launch
+   madd scan and the two tree kernels that the MSM runs in the place of
+   per-step jac_madd and per-launch jac_add, and the quotient scan's
+   reduce and apply kernels that replace its per-step fr_mul) against its
+   plain
    PyTorch version on the same inputs on the card, bit for bit (0
    mismatches allowed; the tree kernels add in another order than their
    plain versions, so their outputs are compared as affine points): first
@@ -22,9 +24,14 @@ Phases, each printing what it found:
    runs of 0xffffffff words -- in the inputs of every field and point
    kernel, the degenerate point cases, dead and colliding MSM leaves,
    identity, P + P and P + (-P) in the tree, the gather at a ragged row
-   count with indices outside the table), then at the main path's shapes,
-   where the kernel's time, its plain version's time and its bound are
-   taken;
+   count with indices outside the table, the quotient scan's launches at
+   one to three blocks of rows, ragged, in both orders, with edge words in
+   the carries and the multiplier, and its whole scan across four levels
+   against the blocked fr_mul / fr_add recurrence it replaced), then at
+   the main path's shapes, where the kernel's time, its plain version's
+   time and its bound are taken (the quotient scan at D + 1 = 20,971,543
+   coefficients, also whole: time, launches and peak memory against the
+   recurrence it replaced);
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
    setup and prove on the card, for all three transcripts, against
    tests/fixtures/golden_dummy.json;
@@ -34,14 +41,18 @@ Phases, each printing what it found:
    peak device memory and each kernel's launch count (every kernel of
    PROVE_KERNELS > 0 in a prove, the port-only to_affine > 0 in setup; one
    madd_scan per MSM chunk and no jac_madd, at most 3 tree launches a
-   chunk, fewer jac_add launches than chunks);
+   chunk, fewer jac_add launches than chunks; the quotient scan phase
+   launching only its reduce and apply kernels, 2 a level and 1 for the
+   top, no fr_mul), and the second prove's peak memory and launches by
+   phase;
 4b. the fused-scan configuration (POLYMATH_MSM_FUSED=1) of the main path:
    with the phase-4 key, four proves in turns (split, fused, fused,
    split), each from a fresh Rng(7): the proofs must be byte-equal and
    verify, a wrong public input must be rejected, and each fused prove
    must launch fused_scan (B7) once per MSM chunk, no madd_scan, jac_madd
-   or gather_rows, and at most 3 tree launches a chunk.  Per-phase times,
-   peak device memory and launches of each;
+   or gather_rows, and at most 3 tree launches a chunk; the quotient scan
+   as in phase 4.  Per-phase times, peak device memory (also by phase)
+   and launches of each;
 5. measurement entry points (polymath_tpu_torch/tools), each through its
    main() at its default size: primbench (T2: nine chains of 512
    dependent steps over 2^17 elements, on the tool's constant input and a
@@ -84,6 +95,7 @@ step (two for the masked multiply and the shift+xor), its f32 rows at
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -112,13 +124,21 @@ BFLY_OPS = FR_MUL_OPS                              # one product a pair
 
 #: the kernels every (split) prove launches: B1, B2, B4, B6, the one-launch
 #: madd scan (B3), B5 and the two tree kernels that replace its launches in
-#: the MSM; the kernel that replaces the gather and madd scan in the fused
+#: the MSM, the quotient scan's two kernels (B1's main-path use); the
+#: kernel that replaces the gather and madd scan in the fused
 #: configuration; kernels no prove launches (two that no path of the
 #: reference calls, and B3 at one step); the port-only setup kernel
 PROVE_KERNELS = ("fr_mul", "fr_sqr", "madd_scan", "gather_rows", "jac_add",
-                 "row_offsets", "window_fold", "ntt_local")
+                 "row_offsets", "window_fold", "ntt_local",
+                 "affine_scan_reduce", "affine_scan_apply")
 SPLIT_ONLY = ("madd_scan", "gather_rows")
 TREE_KERNELS = ("row_offsets", "window_fold")
+QUOTIENT_KERNELS = ("affine_scan_reduce", "affine_scan_apply")
+QUOTIENT_PHASE = "prover::stage2b (quotient scan)"
+POLY_SOURCE = "polymath_tpu_torch/csrc/poly.cu"
+POLY_REPLACES = "polymath_tpu/ops/pallas_field.py:37"
+POLY_NOTE = ("B1 (_mul_kernel) as the reference's quotient scan runs it: "
+             "poly_jax.py:affine_scan :23-75, its fr_mul carry :70-72")
 FUSED_KERNELS = ("fused_scan",)
 UNCALLED_KERNELS = ("jac_double", "fr_butterfly")
 OFF_PATH_KERNELS = ("jac_madd",)
@@ -471,6 +491,28 @@ def plain_ntt_local(x, tw):
                                             words_to_limbs(tw)))
 
 
+def plain_scan(c, mult_m, rev):
+    """The quotient scan as the blocked fr_mul / fr_add recurrence that it
+    replaced (ops/poly.py:affine_scan_plain), in either order."""
+    from polymath_tpu_torch.ops import poly
+    if not rev:
+        return poly.affine_scan_plain(c, mult_m)
+    return poly.affine_scan_plain(c.flip(-1), mult_m).flip(-1)
+
+
+def scan_multipliers(seed: int) -> list:
+    """Canonical multipliers for the quotient scan's launches: one from
+    numpy default_rng(seed) and three whose Montgomery words are Fr edge
+    values (p - 1, R mod p, a run of 0xffffffff words)."""
+    import numpy as np
+    from polymath_tpu_torch.ops.limbs import FR_SPEC
+    p = FR_SPEC.modulus
+    e = edge_values(p, FR_SPEC.W)
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(40), "little") % p] + [
+        FR_SPEC.from_mont_int(w) for w in (e[2], e[4], e[-2])]
+
+
 def check_kernels(dev) -> dict:
     """Every kernel against its plain version on the card at moderate
     shapes that hold the edge cases: 2^16 field elements with every pair of
@@ -480,12 +522,18 @@ def check_kernels(dev) -> dict:
     and the madd scan on its gathered leaves, with the lanes of
     scan_inputs (edge-word rows among them); the tree kernels on
     tree_inputs (edge-word Z); the gather at 40,960 rows and at 7,013 rows
-    with the sentinel and indices outside the table.
+    with the sentinel and indices outside the table; the quotient scan's
+    reduce and apply at 1, 16, 17 and 2,053 elements (one row, one full
+    row, a ragged second row, three blocks of rows) in both orders, with
+    edge words in the elements and the carries and as the multiplier
+    (scan_multipliers), and its whole scan at 4,103 elements (three levels
+    of row totals) against plain_scan.
     Raises on any difference; returns {kernel: largest word error}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import cuda_scan, cuda_tree
+    from polymath_tpu_torch.ops import cuda_poly, cuda_scan, cuda_tree, poly
     from polymath_tpu_torch.ops import ntt as N
+    from polymath_tpu_torch.ops.field import fr_const
 
     errs = {}
 
@@ -581,6 +629,32 @@ def check_kernels(dev) -> dict:
         tw = N.local_twiddles(2048, inverse, dev)
         note("ntt_local", f"ntt_local inverse={inverse}",
              N.ntt_local_kernel(x, tw), plain_ntt_local(x, tw))
+
+    mults = scan_multipliers(8)
+    row = cuda_poly.ROW
+    for n in (1, row, row + 1, 128 * row + 5):
+        x = field_inputs(dev, n, 10 + n)
+        # rolled, so that row 1 starts from an edge word and not from 0
+        carry = field_inputs(dev, cuda_poly.rows_of(n), 20 + n,
+                             role=1).roll(1, 1)
+        for mult in mults:
+            for rev in (False, True):
+                what = f"(n {n}, rev {rev}, mult {mult:#x})"
+                note("affine_scan_reduce", f"affine_scan_reduce {what}",
+                     cuda_poly.affine_scan_reduce(x, mult, rev),
+                     cuda_poly.affine_scan_reduce_plain(x, mult, rev))
+                note("affine_scan_apply", f"affine_scan_apply {what}",
+                     cuda_poly.affine_scan_apply(x, mult, carry, rev),
+                     cuda_poly.affine_scan_apply_plain(x, mult, carry, rev))
+    x = field_inputs(dev, row ** 3 + 7, 30)
+    for mult in mults[:2]:
+        mult_m = fr_const(mult, dev)
+        for rev in (False, True):
+            got = poly.affine_scan(x, mult_m, rev)
+            err = compare(f"quotient scan (n {x.shape[1]}, rev {rev})", got,
+                          plain_scan(x, mult_m, rev))
+            for k in QUOTIENT_KERNELS:
+                errs[k] = max(errs[k], err)
     return errs
 
 
@@ -590,9 +664,10 @@ def measure_kernels(dev, errs: dict) -> dict:
     {kernel: the JSON entry without launches}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import cuda_scan, cuda_tree
+    from polymath_tpu_torch.ops import cuda_poly, cuda_scan, cuda_tree, poly
     from polymath_tpu_torch.ops import msm as M
     from polymath_tpu_torch.ops import ntt as N
+    from polymath_tpu_torch.ops.field import fr_const
     from polymath_tpu_torch.tools import bound_ms, timed_ms
 
     out = {}
@@ -649,7 +724,19 @@ def measure_kernels(dev, errs: dict) -> dict:
           lambda: cuda_field.fr_butterfly(lo, hi, tw),
           lambda: plain_butterfly(lo, hi, tw), 20, 5 * 32 * half,
           BFLY_OPS * half)
-    del big, big2, lo, hi, tw
+    # the shape at which the blocked recurrence that the quotient scan's
+    # kernels replaced launched it (ops/poly.py:affine_scan_plain): a step
+    # of level 0, 327,681 rows times the (8, 1) multiplier
+    step, m1 = big[:, :327_681], big2[:, :1]
+    cuda_field.fr_mul(step, m1)
+    got, s_ms = timed_ms(lambda: cuda_field.fr_mul(step, m1), dev, 50)
+    compare("fr_mul (8, 327681) x (8, 1)", got, plain_fr_mul(step, m1))
+    s_bound, s_by = bound_ms(2 * 32 * 327_681 + 32, FR_MUL_OPS * 327_681)
+    out["fr_mul"].update(scan_step_ms=s_ms, scan_step_bound_ms=s_bound)
+    print(f"  fr_mul at the replaced quotient scan's step (8, 327681) x "
+          f"(8, 1): {s_ms:.4f} ms, bound {s_bound:.6f} ms ({s_by})",
+          flush=True)
+    del big, big2, lo, hi, tw, step, m1
 
     # the MSM scan step: 20 windows x 2048 rows of one 2^19-point chunk
     acc, leaf, q = point_inputs(dev, 1 << 12)
@@ -785,6 +872,68 @@ def measure_kernels(dev, errs: dict) -> dict:
           "polymath_tpu/ops/ntt.py:87", "(8, 2048, 2048)",
           lambda: N.ntt_local_kernel(xl, tw), lambda: plain_ntt_local(xl, tw),
           10, 2 * 32 * nt + 32 * 1024, FR_MUL_OPS * (nt // 2) * 11)
+    del x, xl
+
+    # the quotient scan at the bench workload, as stage2b runs it: the D
+    # numerator's D + 1 = 20,971,543 coefficients (2^12 seeded elements
+    # repeated) read top down, x1 from a seed; level 0's reduce, and its
+    # apply from the real carries.  One Fr product an element.
+    dlen = 20_971_543
+    coeffs = field_inputs(dev, 1 << 12, 12).repeat(
+        1, -(-dlen // 4096))[:, :dlen].contiguous()
+    x1 = scan_multipliers(9)[0]
+    rows = cuda_poly.rows_of(dlen)
+    shape = f"(8, {dlen}) reversed, level 0"
+    entry("affine_scan_reduce", POLY_SOURCE, POLY_REPLACES, shape,
+          lambda: cuda_poly.affine_scan_reduce(coeffs, x1, True),
+          lambda: cuda_poly.affine_scan_reduce_plain(coeffs, x1, True), 10,
+          32 * (dlen + rows), FR_MUL_OPS * dlen)
+    totals = cuda_poly.affine_scan_reduce(coeffs, x1, True)
+    carry = poly.affine_scan(
+        totals, fr_const(poly.plan_levels(dlen, x1)[1][1], dev))
+    entry("affine_scan_apply", POLY_SOURCE, POLY_REPLACES, shape,
+          lambda: cuda_poly.affine_scan_apply(coeffs, x1, carry, True),
+          lambda: cuda_poly.affine_scan_apply_plain(coeffs, x1, carry, True),
+          10, 32 * (2 * dlen + rows), FR_MUL_OPS * dlen)
+    del totals, carry
+    for k in QUOTIENT_KERNELS:
+        out[k]["note"] = POLY_NOTE
+
+    # the whole scan (stage2b's work): the kernels' levels against the
+    # blocked fr_mul / fr_add recurrence they replaced, with each side's
+    # launches and the device memory it takes above its input
+    def scan_run(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res, ms = timed_ms(fn, dev)
+        counts = {k: v for k, v in launches().items() if v}
+        return res, ms, torch.cuda.max_memory_allocated() - base, counts
+
+    x1_m = fr_const(x1, dev)
+    want, plain_ms, plain_peak, plain_counts = scan_run(
+        lambda: plain_scan(coeffs, x1_m, True))
+    got, _, peak, counts = scan_run(
+        lambda: poly.affine_scan(coeffs, x1_m, True))
+    err = compare("quotient scan (bench size)", got, want)
+    del got, want
+    warm = (poly.synthetic_divide_device(coeffs, x1_m),
+            poly.synthetic_divide_device(coeffs, x1_m))
+    del warm
+    _, ms = timed_ms(lambda: poly.synthetic_divide_device(coeffs, x1_m),
+                     dev, 10)
+    b, by = bound_ms(2 * 32 * dlen, FR_MUL_OPS * dlen)
+    whole = {"shape": f"(8, {dlen}) reversed", "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "max_abs_err": err, "launches": counts,
+             "plain_launches": plain_counts, "peak_bytes": peak,
+             "plain_peak_bytes": plain_peak}
+    out["affine_scan_apply"]["quotient_scan"] = whole
+    print(f"  quotient scan (8, {dlen}): {ms:.4f} ms in {counts} against "
+          f"plain {plain_ms:.1f} ms in {plain_counts}; bound {b:.4f} ms "
+          f"({by}); memory above the input {peak / 2**30:.3f} GiB, plain "
+          f"{plain_peak / 2**30:.3f} GiB", flush=True)
     return out
 
 
@@ -824,8 +973,9 @@ def _counted_modules(tools: bool = False):
         from polymath_tpu_torch.tools import pgather_variants, primbench
         return (primbench, pgather_variants)
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
-    from polymath_tpu_torch.ops import cuda_scan, cuda_tree, ntt
-    return (cuda_field, cuda_curve, cuda_gather, cuda_scan, cuda_tree, ntt)
+    from polymath_tpu_torch.ops import cuda_poly, cuda_scan, cuda_tree, ntt
+    return (cuda_field, cuda_curve, cuda_gather, cuda_scan, cuda_tree, ntt,
+            cuda_poly)
 
 
 def launches(tools: bool = False) -> dict:
@@ -839,6 +989,63 @@ def reset_launches() -> None:
     for mod in _counted_modules() + _counted_modules(tools=True):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
+
+
+class PhaseProbe:
+    """Each prover phase's kernel launches and peak device memory, taken
+    through utils/timers.HOOKS while ``installed``.  The peak statistic is
+    reset as each phase starts; ``peak`` keeps the largest over the phases
+    and what came between them."""
+
+    def __init__(self):
+        self.phases, self.peak = {}, 0
+
+    @contextlib.contextmanager
+    def __call__(self, label: str):
+        import torch
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        before = launches()
+        try:
+            yield
+        finally:
+            phase_peak = torch.cuda.max_memory_allocated()
+            self.peak = max(self.peak, phase_peak)
+            after = launches()
+            self.phases[label] = {
+                "peak_bytes": phase_peak,
+                "launches": {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}}
+
+    @contextlib.contextmanager
+    def installed(self):
+        from polymath_tpu_torch.utils import timers
+        timers.HOOKS.append(self)
+        try:
+            yield self
+        finally:
+            timers.HOOKS.remove(self)
+
+    def overall_peak(self) -> int:
+        import torch
+        return max(self.peak, torch.cuda.max_memory_allocated())
+
+    def report(self, what: str) -> None:
+        for label, r in sorted(self.phases.items()):
+            print(f"    {what} {label}: peak {r['peak_bytes'] / 2**30:.3f} "
+                  f"GiB; launches {json.dumps(r['launches'])}")
+
+
+def check_quotient_launches(probe: PhaseProbe) -> None:
+    """The quotient scan phase launches the scan's reduce and apply
+    kernels only, 2 a level and 1 for the top (one more apply than
+    reduces), and no fr_mul."""
+    fl = probe.phases[QUOTIENT_PHASE]["launches"]
+    red, app = (fl.get(k, 0) for k in QUOTIENT_KERNELS)
+    if set(fl) - set(QUOTIENT_KERNELS) or red < 1 or app != red + 1:
+        raise AssertionError(f"{QUOTIENT_PHASE} launched {fl}: want only "
+                             f"{QUOTIENT_KERNELS}, one more apply than "
+                             f"reduces")
 
 
 def main_path(dev, num_constraints: int) -> dict:
@@ -878,7 +1085,9 @@ def main_path(dev, num_constraints: int) -> dict:
                           lambda: pm.prove(pk, circuit(), rng))
     phases1 = {k: v for k, v in timers.TIMES.items()
                if k.startswith("prover::")}
-    proof2, prove_s = step("prove 2", lambda: pm.prove(pk, circuit(), rng))
+    with PhaseProbe().installed() as probe:
+        proof2, prove_s = step("prove 2",
+                               lambda: pm.prove(pk, circuit(), rng))
     total = launches()
     phases2 = {k: v for k, v in timers.TIMES.items()
                if k.startswith("prover::") or k.startswith("setup::")}
@@ -889,9 +1098,10 @@ def main_path(dev, num_constraints: int) -> dict:
     verify_s = (time.time() - t0) / 2
     if pm.verify(vk, [(a * b + 1) % R], proof2):
         raise AssertionError("a wrong public input was accepted")
-    peak = torch.cuda.max_memory_allocated()
+    peak = probe.overall_peak()
     print(f"  verify {verify_s * 1e3:.1f} ms per proof; wrong public input "
           f"rejected; peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    probe.report("prove 2")
     for k, v in sorted(phases1.items()):
         print(f"    warm {k}: {v:.3f} s")
     for k, v in sorted(phases2.items()):
@@ -904,6 +1114,7 @@ def main_path(dev, num_constraints: int) -> dict:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     check_msm_launches(per_prove, "madd_scan")
+    check_quotient_launches(probe)
     return {"launches": total, "per_prove": per_prove, "setup_s": setup_s,
             "warm_prove_s": warm_s, "prove_s": prove_s,
             "verify_ms": verify_s * 1e3, "peak_bytes": peak, "n": vk.n,
@@ -952,12 +1163,13 @@ def fused_path(run: dict) -> list:
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
             t0 = time.time()
-            proof = pm.prove(pk, run["circuit"](), Rng(7))
-            torch.cuda.synchronize()
+            with PhaseProbe().installed() as probe:
+                proof = pm.prove(pk, run["circuit"](), Rng(7))
+                torch.cuda.synchronize()
             turns.append({
                 "label": label, "proof": proof,
                 "prove_s": time.time() - t0, "launches": launches(),
-                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "peak_bytes": probe.overall_peak(), "probe": probe,
                 "phases": {k: v for k, v in timers.TIMES.items()
                            if k.startswith("prover::")}})
     finally:
@@ -971,6 +1183,8 @@ def fused_path(run: dict) -> list:
               f"{json.dumps(r['launches'])}", flush=True)
         for k, v in sorted(r["phases"].items()):
             print(f"    turn {i + 1} {r['label']} {k}: {v:.3f} s")
+        r["probe"].report(f"turn {i + 1} {r['label']}")
+        check_quotient_launches(r["probe"])
     want = turns[0]["proof"].to_bytes()
     for r in turns:
         if r["proof"].to_bytes() != want:

@@ -69,7 +69,7 @@ __device__ __forceinline__ uint32_t mul_hi(uint32_t a, uint32_t b) {
 #else  // host emulation of the same instructions (the CPU tests)
 #define __device__
 #define __forceinline__ inline
-inline uint32_t pm_cf = 0;  // CC.CF
+inline thread_local uint32_t pm_cf = 0;  // CC.CF, one a thread as on the card
 inline uint32_t pm_set(uint64_t s) {
   pm_cf = (uint32_t)(s >> 32) & 1;
   return (uint32_t)s;

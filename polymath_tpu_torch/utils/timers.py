@@ -7,7 +7,9 @@ execution, and each phase also opens an NVTX range so it shows up as a
 named span in a CUDA profiler trace.
 
 Every phase's last duration is kept in ``TIMES`` (label -> seconds), which
-``chip_smoke.py`` reads.
+``chip_smoke.py`` reads.  Each callable in ``HOOKS`` is called with the
+label and entered as a context manager around every phase (chip_smoke.py
+records each phase's kernel launches and peak device memory so).
 
 Usage::
 
@@ -29,6 +31,8 @@ _DEPTH = contextvars.ContextVar("polymath_phase_depth", default=0)
 
 #: label -> seconds of the phase's most recent run
 TIMES: dict = {}
+#: hook(label) -> context manager, entered around every phase
+HOOKS: list = []
 
 
 def trace_enabled() -> bool:
@@ -67,7 +71,9 @@ def phase(label: str):
     tok = _DEPTH.set(depth + 1)
     t0 = time.time()
     try:
-        with _nvtx(label):
+        with _nvtx(label), contextlib.ExitStack() as hooks:
+            for hook in HOOKS:
+                hooks.enter_context(hook(label))
             yield
     finally:
         _DEPTH.reset(tok)

@@ -6,12 +6,13 @@ Every kernel against its plain PyTorch version on the same card inputs,
 bit for bit (the tree kernels, which add in another order, as affine
 points), at the edge-case shapes of chip_smoke.py's phase 2 and, for the
 one-launch madd scan and the tree kernels, at the shapes of the CPU tests
-(tests/test_torch_tree.py); the MSM in its fused-scan configuration
-against the split one, each through its own launches; the golden
-DummyCircuit bytes for all three transcripts proved on the card; and the
-measurement tools' kernels (T1 gather variants, T2 primitive chains)
-against their plain versions, with T2's SASS holding every step.  None
-needs jax: the card machine has none.
+(tests/test_torch_tree.py); the quotient scan's two kernels chained
+over their levels against the recurrence they replaced; the MSM in its
+fused-scan configuration against the split one, each through its own
+launches; the golden DummyCircuit bytes for all three transcripts proved
+on the card; and the measurement tools' kernels (T1 gather variants, T2
+primitive chains) against their plain versions, with T2's SASS holding
+every step.  None needs jax: the card machine has none.
 """
 
 import random
@@ -34,7 +35,7 @@ def card():
 def test_kernels_match_plain_versions(card):
     errs = chip_smoke.check_kernels(card)
     assert set(errs) == set(chip_smoke.ALL_KERNELS)
-    assert len(errs) == 13
+    assert len(errs) == 15
     assert not any(errs.values())
 
 
@@ -57,6 +58,26 @@ def test_madd_scan_matches_plain_version(card, seq, windows, rows, fast):
     assert torch.equal(got, want)
     if fast:
         assert torch.equal(gerr, werr) and bool(gerr[1])
+
+
+@pytest.mark.parametrize("n", [1, 65, 128 * 64 + 17, 300_000])
+def test_quotient_scan_matches_plain_version(card, n):
+    """The quotient scan's two kernels chained over their levels (ops/
+    poly.py:affine_scan), forward and reversed, against the blocked fr_mul /
+    fr_add recurrence they replaced, word for word, with edge words in the
+    elements and as the multiplier; one more apply launch than reduces."""
+    from polymath_tpu_torch.ops import cuda_poly, poly
+    from polymath_tpu_torch.ops.field import fr_const
+    x = chip_smoke.field_inputs(card, n, n)
+    levels = len(poly.plan_levels(n, 1))
+    for mult in chip_smoke.scan_multipliers(n):
+        m = fr_const(mult, card)
+        for rev in (False, True):
+            chip_smoke.reset_launches()
+            got = poly.affine_scan(x, m, rev)
+            assert cuda_poly.LAUNCHES == {"affine_scan_reduce": levels - 1,
+                                          "affine_scan_apply": levels}
+            assert torch.equal(got, chip_smoke.plain_scan(x, m, rev))
 
 
 @pytest.mark.parametrize("windows, rows, n", [(3, 6, 16), (3, 8, 16),
