@@ -53,6 +53,16 @@ Phases, each printing what it found:
    or gather_rows, and at most 3 tree launches a chunk; the quotient scan
    as in phase 4.  Per-phase times, peak device memory (also by phase)
    and launches of each;
+4c. the key store and the bench entry, with the phase-4 key:
+   ``protocol/keys.save_dir`` into a fresh directory under build/ (its
+   seconds and GiB on disk); ``python3 -m polymath_tpu_torch.bench
+   --cache-dir`` that directory's parent in a fresh process
+   (POLYMATH_BENCH_REPS=3), which must load the key rather than run setup
+   and report every proof verified and the fused proof equal to the split
+   one (its JSON line and its phase timers up to the warm prove are
+   printed); then ``keys.load_dir`` of the same
+   directory here and one split prove from Rng(7), byte-equal to phase
+   4b's first proof.  The directory is removed at the end;
 5. measurement entry points (polymath_tpu_torch/tools), each through its
    main() at its default size: primbench (T2: nine chains of 512
    dependent steps over 2^17 elements, on the tool's constant input and a
@@ -66,8 +76,10 @@ Phases, each printing what it found:
    and fused, beside the per-step madd loop and the per-launch tree that
    the one-launch kernels replaced), and productprobe (to_affine at
    40,960 and 2^20 lanes, a probe of one Fq product's latency and
-   throughput, and the SASS instructions of one inlined product).  Every
-   T1 and T2 kernel must have launched in this phase.
+   throughput, and the SASS instructions of one inlined product), and
+   msmtime (one MSM of 2^21 distinct points under each of its ten
+   chunk:c[:seq] configurations; every configuration must give the first
+   one's point).  Every T1 and T2 kernel must have launched in this phase.
 
 B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
 phase 2 holds them against their plain versions and times them; their
@@ -145,14 +157,6 @@ OFF_PATH_KERNELS = ("jac_madd",)
 SETUP_KERNELS = ("to_affine",)
 ALL_KERNELS = PROVE_KERNELS + FUSED_KERNELS + UNCALLED_KERNELS + \
     OFF_PATH_KERNELS + SETUP_KERNELS
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def check_ptxas(names) -> None:
@@ -420,7 +424,7 @@ def chunk_inputs(dev):
     from polymath_tpu_torch.ops import curve as C
     from polymath_tpu_torch.ops import cuda_curve
     from polymath_tpu_torch.ops import msm as M
-    chunk = M.DEFAULT_CHUNK
+    chunk = M.default_chunk()
     base = host_points(4096)
     step, offs = bls.G1.mul(bls.G1.gen, 4096), [None]
     for _ in range(chunk // 4096 - 1):
@@ -838,7 +842,7 @@ def measure_kernels(dev, errs: dict) -> dict:
     local, _ = M.scan_local(table_c, idx_c, True, True)
     del table_c, idx_c
     ps, cnt, r_of = M.threshold_prefixes(
-        local, d_sorted, M.window_params(M.DEFAULT_CHUNK)[0])
+        local, d_sorted, M.window_params(M.default_chunk())[0])
     totals = local[:, seq - 1]
     windows, rows = totals.shape[1:]
     entry("row_offsets", "polymath_tpu_torch/csrc/tree.cu",
@@ -1151,32 +1155,25 @@ def fused_path(run: dict) -> list:
     from polymath_tpu_torch.hostmath.bls12_381 import R
     from polymath_tpu_torch.protocol import Rng
     from polymath_tpu_torch.utils import timers
+    from polymath_tpu_torch.utils.config import environ
 
     pm, pk, vk = run["pm"], run["pk"], run["vk"]
-    saved = os.environ.get("POLYMATH_MSM_FUSED")
     turns = []
-    try:
-        for label in ("split", "fused", "fused", "split"):
-            os.environ["POLYMATH_MSM_FUSED"] = "1" if label == "fused" \
-                else "0"
+    for label in ("split", "fused", "fused", "split"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        with environ(POLYMATH_MSM_FUSED="1" if label == "fused" else "0"), \
+                PhaseProbe().installed() as probe:
+            proof = pm.prove(pk, run["circuit"](), Rng(7))
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            t0 = time.time()
-            with PhaseProbe().installed() as probe:
-                proof = pm.prove(pk, run["circuit"](), Rng(7))
-                torch.cuda.synchronize()
-            turns.append({
-                "label": label, "proof": proof,
-                "prove_s": time.time() - t0, "launches": launches(),
-                "peak_bytes": probe.overall_peak(), "probe": probe,
-                "phases": {k: v for k, v in timers.TIMES.items()
-                           if k.startswith("prover::")}})
-    finally:
-        if saved is None:
-            os.environ.pop("POLYMATH_MSM_FUSED", None)
-        else:
-            os.environ["POLYMATH_MSM_FUSED"] = saved
+        turns.append({
+            "label": label, "proof": proof,
+            "prove_s": time.time() - t0, "launches": launches(),
+            "peak_bytes": probe.overall_peak(), "probe": probe,
+            "phases": {k: v for k, v in timers.TIMES.items()
+                       if k.startswith("prover::")}})
     for i, r in enumerate(turns):
         print(f"  turn {i + 1} {r['label']}: prove {r['prove_s']:.3f} s, "
               f"peak {r['peak_bytes'] / 2**30:.2f} GiB; launches "
@@ -1217,6 +1214,106 @@ def fused_path(run: dict) -> list:
     return turns
 
 
+# -- phase 4c ------------------------------------------------------------------
+
+#: what the bench entry's JSON line must hold (polymath_tpu_torch/bench.py)
+BENCH_FIELDS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL = ("prove_seconds", "fused_prove_seconds", "warm_prove_seconds",
+                "setup_seconds", "pk_load_seconds", "kernel_build_seconds",
+                "verify_ms", "verify_reps", "peak_gib", "domain_n",
+                "num_constraints", "device", "verify", "fused_equals_split")
+
+
+def key_store_path(dev, run: dict, split_proof, num_constraints: int) -> dict:
+    """The key store and the bench entry with the phase-4 key (phase 4c of
+    the module docstring).  Returns the seconds and bytes of save_dir, the
+    bench entry's line and wall seconds, and the load and prove here."""
+    import shutil
+    import tempfile
+    import torch
+    from polymath_tpu_torch import bench
+    from polymath_tpu_torch.protocol import Rng, keys
+    from polymath_tpu_torch.utils.config import environ
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    parent = tempfile.mkdtemp(prefix="keystore.",
+                              dir=os.path.join(HERE, "build"))
+    try:
+        pk_dir = os.path.join(parent,
+                              f"torch_pk_{num_constraints}_{bench.SEED}.dir")
+        t0 = time.time()
+        keys.save_dir(run["pk"], pk_dir)
+        save_s = time.time() - t0
+        disk = sum(os.path.getsize(os.path.join(pk_dir, f))
+                   for f in os.listdir(pk_dir))
+        print(f"  save_dir: {save_s:.3f} s, {disk / 2**30:.3f} GiB on disk "
+              f"({len(os.listdir(pk_dir))} files)", flush=True)
+
+        torch.cuda.empty_cache()
+        env = dict(os.environ, POLYMATH_BENCH_REPS="3",
+                   POLYMATH_BENCH_CONSTRAINTS=str(num_constraints),
+                   POLYMATH_BENCH_VARIABLES=str(num_constraints))
+        env.pop("POLYMATH_MSM_FUSED", None)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "polymath_tpu_torch.bench",
+             "--cache-dir", parent], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=600)
+        bench_s = time.time() - t0
+        # its summary lines, and the phase timers up to the warm prove
+        warm = True
+        for ln in proc.stderr.splitlines():
+            if warm or ln.startswith("#"):
+                print(f"  bench {ln}", flush=True)
+            warm = warm and not ln.startswith("# warm prove")
+        if proc.returncode != 0:
+            raise AssertionError(f"the bench entry exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        detail = line.get("detail", {})
+        missing = [k for k in BENCH_FIELDS if k not in line]
+        missing += [k for k in BENCH_DETAIL if k not in detail]
+        if missing:
+            raise AssertionError(f"bench line lacks {missing}")
+        if detail["setup_seconds"] != 0 or not detail["pk_load_seconds"] > 0:
+            raise AssertionError(f"the bench entry ran setup instead of "
+                                 f"loading {pk_dir}")
+        if detail["verify"] is not True or \
+                detail["fused_equals_split"] is not True:
+            raise AssertionError(f"bench line: verify {detail['verify']}, "
+                                 f"fused equal to split "
+                                 f"{detail['fused_equals_split']}")
+        if detail["domain_n"] != run["n"]:
+            raise AssertionError(f"bench domain {detail['domain_n']} != "
+                                 f"{run['n']}")
+        print(f"  bench entry, fresh process, {bench_s:.1f} s wall:",
+              flush=True)
+        print(f"  bench line: {json.dumps(line)}", flush=True)
+
+        t0 = time.time()
+        pk = keys.load_dir(pk_dir, dev)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        with environ(POLYMATH_MSM_FUSED="0"):
+            t0 = time.time()
+            proof = run["pm"].prove(pk, run["circuit"](), Rng(7))
+            torch.cuda.synchronize()
+            prove_s = time.time() - t0
+        if proof.to_bytes() != split_proof.to_bytes():
+            raise AssertionError("the loaded key's proof differs from phase "
+                                 "4b's first proof")
+        if not run["pm"].verify(run["vk"], [run["public"]], proof):
+            raise AssertionError("the loaded key's proof was rejected")
+        print(f"  load_dir here {load_s:.3f} s; prove from Rng(7) "
+              f"{prove_s:.3f} s, byte-equal to phase 4b's first proof",
+              flush=True)
+        del pk
+    finally:
+        shutil.rmtree(parent, ignore_errors=True)
+    return {"save_s": save_s, "disk_bytes": disk, "bench": line,
+            "bench_wall_s": bench_s, "load_s": load_s, "prove_s": prove_s}
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 T1_SOURCE = "polymath_tpu_torch/csrc/gather_variants.cu"
@@ -1232,13 +1329,15 @@ def measurement_path() -> dict:
     Returns the tools' results, the launches, and the T1/T2 entries of the
     kernels line."""
     from polymath_tpu_torch.tools import (
-        fusedprof, kernel_metrics, pgather_variants, primbench, productprobe)
+        fusedprof, kernel_metrics, msmtime, pgather_variants, primbench,
+        productprobe)
     reset_launches()
     pb = primbench.main([])
     gv = pgather_variants.main([])
     km = kernel_metrics.main([])
     fp = fusedprof.main([])
     pp = productprobe.main([])
+    mt = msmtime.main([])
     counts = launches(tools=True)
     never = [k for k, v in counts.items() if v == 0]
     if never:
@@ -1270,8 +1369,8 @@ def measurement_path() -> dict:
             "launches": counts[name], "ns_per_row": v["ns_per_row"],
             "path": "measurement entry points (phase 5)"})
     return {"primbench": pb, "pgather_variants": gv, "kernel_metrics": km,
-            "fusedprof": fp, "productprobe": pp, "launches": counts,
-            "entries": entries}
+            "fusedprof": fp, "productprobe": pp, "msmtime": mt,
+            "launches": counts, "entries": entries}
 
 
 def main() -> int:
@@ -1289,6 +1388,7 @@ def main() -> int:
         print(f"chip_smoke: polymath_tpu_torch is not importable ({e})",
               file=sys.stderr)
         return 2
+    from polymath_tpu_torch.utils.config import nvidia_smi_line
     dev = torch.device("cuda")
     t_start = time.time()
     # phase timers wait for the card, so each phase reads device time
@@ -1342,14 +1442,32 @@ def main() -> int:
     # 4b. the fused-scan configuration of the main path
     print("[4b] fused-scan configuration (POLYMATH_MSM_FUSED=1), phase-4 "
           "key, Rng(7): proves split, fused, fused, split", flush=True)
-    fused = fused_path(run)[1]
+    turns = fused_path(run)
+    fused = turns[1]
     print(f"[4b] fused prove {fused['prove_s']:.2f} s, peak "
           f"{fused['peak_bytes'] / 2**30:.2f} GiB, fused_scan launches "
           f"{fused['launches']['fused_scan']}", flush=True)
 
+    # 4c. the key store and the bench entry
+    print("[4c] key store and bench entry: save_dir of the phase-4 key, "
+          "python3 -m polymath_tpu_torch.bench in a fresh process, load_dir "
+          "and a prove from Rng(7) here", flush=True)
+    t0 = time.time()
+    store = key_store_path(dev, run, turns[0]["proof"], args.constraints)
+    bd = store["bench"]["detail"]
+    print(f"[4c] save_dir {store['save_s']:.2f} s, "
+          f"{store['disk_bytes'] / 2**30:.3f} GiB; bench: pk_load "
+          f"{bd['pk_load_seconds']:.3f} s, kernel build "
+          f"{bd['kernel_build_seconds']:.3f} s, warm prove "
+          f"{bd['warm_prove_seconds']:.3f} s, prove {bd['prove_seconds']:.3f}"
+          f" s, fused {bd['fused_prove_seconds']:.3f} s, peak "
+          f"{bd['peak_gib']:.3f} GiB, verify {bd['verify_ms']:.3f} ms; "
+          f"phase 4c took {time.time() - t0:.1f} s", flush=True)
+
     # 5. the measurement entry points
     print("[5] measurement entry points: primbench (T2), pgather_variants "
-          "(T1), kernel_metrics, fusedprof", flush=True)
+          "(T1), kernel_metrics, fusedprof, productprobe, msmtime",
+          flush=True)
     t0 = time.time()
     meas = measurement_path()
     km, fp = meas["kernel_metrics"], meas["fusedprof"]
@@ -1370,6 +1488,12 @@ def main() -> int:
     pp = meas["productprobe"]
     print(f"[5] productprobe: to_affine {json.dumps(pp['to_affine'])}; SASS "
           f"of one inlined product {json.dumps(pp['sass'])}", flush=True)
+    mt = meas["msmtime"]
+    sweep = [f"{r['config']} (chunk {r['chunk']}, c {r['c']}, seq "
+             f"{r['seq']}) {r['steady_ms']:.3f} ms {r['mpts_per_s']:.3f} "
+             f"Mpts/s" for r in mt["configs"]]
+    print(f"[5] msmtime, {mt['n']} points, one point in every config; "
+          f"fastest {mt['fastest']}: {'; '.join(sweep)}", flush=True)
 
     kernels = []
     for name in ALL_KERNELS:

@@ -34,6 +34,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(os.path.dirname(_PKG), "build")
 SOURCES = ("field", "g1", "scan", "tree", "ntt", "poly", "primbench",
            "gather_variants")
+#: the sources setup and the prover load (the others serve the
+#: measurement tools)
+PATH_SOURCES = SOURCES[:6]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

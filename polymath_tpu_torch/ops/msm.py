@@ -40,6 +40,24 @@ canonical or Montgomery (``mont=True``).
 per-lane collision flag when the result is read; the prover then reruns
 safe.  ``defer=True`` returns an ``MsmPending`` whose launches are queued
 on the card; ``.result()`` waits for them.
+
+Tuning overrides, read at each call as the reference reads them
+(msm.py:_window_params, _scan_seq, _default_chunk and the tail switch);
+unset, the defaults below hold.  A value outside what the kernels and
+their buffers take raises ``ValueError`` naming the limit:
+
+* ``POLYMATH_MSM_C``: the window width c, 1 to 16 (the reference's digit
+  limit; the fold then holds 2^c thresholds a window);
+* ``POLYMATH_MSM_SEQ``: the scan length a row, a power of two; a chunk
+  shorter than it is scanned as one row, as the reference does
+  (msm.py:521, ``min(seq, chunk)``);
+* ``POLYMATH_MSM_CHUNK``: the points a chunk, a power of two from 2 to
+  2^22 (``default_chunk``);
+* ``POLYMATH_MSM_TAIL=0`` (or ``off``/``false``): no host tail; a short
+  tail past whole chunks then runs as one more chunk on the card.
+
+The reference's ``POLYMATH_MSM_ROWSCAN`` (a choice between two row-offset
+strategies) has no counterpart: csrc/tree.cu's row scan replaces both.
 """
 
 from __future__ import annotations
@@ -61,6 +79,26 @@ from .limbs import FQ_SPEC, words_to_ints
 SCALAR_BITS = 255
 DEFAULT_CHUNK = 1 << 19
 TAIL_MAX = 64         # a tail this short past whole chunks goes to the host
+MAX_C = 16
+# A chunk's scan buffers take about 250 bytes a lane step (prefixes 144,
+# gathered leaves 96, indices 8; W x chunk lane steps): 21 GB at 2^22 and
+# c = 13, and past the card's 80 GB beside the bench key at 2^23 and c = 8.
+MAX_CHUNK = 1 << 22
+
+
+def _env_int(name: str):
+    """The override ``name`` as an int, or None when it is unset."""
+    raw = os.environ.get(name, "")
+    if raw == "":
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+
+def _power_of_two(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
 
 
 def window_params(chunk: int):
@@ -68,9 +106,15 @@ def window_params(chunk: int):
 
     Total adds per chunk ~ W*(chunk + 2*2^c) with W = ceil(255/c).  Large
     chunks keep the reference's c = log2(chunk) - 6 (c = 13 at 2^19);
-    small ones take the c that minimises the count."""
+    small ones take the c that minimises the count.  ``POLYMATH_MSM_C``
+    overrides c (1 to MAX_C)."""
+    c = _env_int("POLYMATH_MSM_C")
     log_n = max(chunk, 2).bit_length() - 1
-    if chunk <= 4096:
+    if c is not None:
+        if not 1 <= c <= MAX_C:
+            raise ValueError(f"POLYMATH_MSM_C={c}: the window width must be "
+                             f"1 to {MAX_C}")
+    elif chunk <= 4096:
         c = min(8, max(4, log_n - 3))
     else:
         c = min(14, max(8, log_n - 6))
@@ -80,13 +124,46 @@ def window_params(chunk: int):
 def scan_seq(chunk: int) -> int:
     """Scan length per row: about sqrt(chunk) (at least 2, so adjacent
     equal leaves meet in the madd), capped at 256 (the reference's length
-    at 2^19, where rows = 2048 keep each launch wide)."""
-    return min(256, 1 << (chunk.bit_length() // 2))
+    at 2^19, where rows = 2048 keep each launch wide).
+    ``POLYMATH_MSM_SEQ`` overrides it (a power of two; a chunk shorter
+    than it is one row)."""
+    seq = _env_int("POLYMATH_MSM_SEQ")
+    if seq is None:
+        return min(256, 1 << (chunk.bit_length() // 2))
+    if not _power_of_two(seq):
+        raise ValueError(f"POLYMATH_MSM_SEQ={seq}: the scan length must be a "
+                         f"power of two, so that it divides the chunk")
+    return min(seq, chunk)
+
+
+def default_chunk() -> int:
+    """The most points a chunk: ``POLYMATH_MSM_CHUNK`` (a power of two, 2
+    to MAX_CHUNK) or DEFAULT_CHUNK."""
+    chunk = _env_int("POLYMATH_MSM_CHUNK")
+    if chunk is None:
+        return DEFAULT_CHUNK
+    if not (_power_of_two(chunk) and 2 <= chunk <= MAX_CHUNK):
+        raise ValueError(f"POLYMATH_MSM_CHUNK={chunk}: a chunk must be a "
+                         f"power of two from 2 to {MAX_CHUNK}")
+    return chunk
+
+
+def tail_mode() -> bool:
+    """Whether a short tail past whole chunks goes to the host (default);
+    ``POLYMATH_MSM_TAIL`` set to ``0``/``off``/``false`` turns it off."""
+    raw = os.environ.get("POLYMATH_MSM_TAIL", "")
+    if raw in ("", "1", "on", "true"):
+        return True
+    if raw in ("0", "off", "false"):
+        return False
+    raise ValueError(f"POLYMATH_MSM_TAIL={raw!r}: use 0/off/false or "
+                     f"1/on/true")
 
 
 def choose_chunk(m: int) -> int:
-    """The smallest power of two holding m points, at most DEFAULT_CHUNK."""
-    return min(DEFAULT_CHUNK, 1 << max(m - 1, 1).bit_length())
+    """The smallest power of two holding m points, at most
+    ``default_chunk()``."""
+    return min(default_chunk(), 1 << max(m - 1, 1).bit_length())
 
 
 def fused_mode() -> bool:
@@ -266,7 +343,7 @@ def msm_device(bases: torch.Tensor, scalars: torch.Tensor,
     if chunk is None:
         chunk = choose_chunk(m)
     tail = None
-    if m > chunk and 0 < m % chunk <= TAIL_MAX:
+    if tail_mode() and m > chunk and 0 < m % chunk <= TAIL_MAX:
         lo = m - m % chunk
         tail = (bases[lo:m], sc[:, lo:m])
         m = lo

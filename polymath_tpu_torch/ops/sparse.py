@@ -8,7 +8,9 @@ exact only below 2^15 entries per segment and forced its two-level
 segment plan; here the limb sums are ``int64`` ``index_add_``, exact up to
 2^47 entries, so rows are summed in one level.  Keys written by the
 reference with a two-level plan are mapped back to plain row ids when
-they are loaded (``CooMatrix.from_arrays``).
+they are loaded (``CooMatrix.from_arrays``), and ``plan_segments`` (the
+reference's planner, numpy only) makes that plan again when a key is
+written in the reference's layout (protocol/keys.py).
 """
 
 from __future__ import annotations
@@ -19,6 +21,41 @@ import torch
 from ..hostmath.bls12_381 import R
 from .field import fr_from_lazy
 from .limbs import FR_SPEC, ints_to_words, pack_np, words_to_limbs
+
+#: The reference's lazy uint32 limb sums stay < 2^31 only for segments of
+#: < 2^15 entries (each Montgomery limb < 2^16); plan_segments splits
+#: denser segments.
+MAX_SEG = 1 << 15
+
+
+def plan_segments(seg_ids: np.ndarray, num_segments: int):
+    """The reference's segment plan (ops/sparse.py:plan_segments), output
+    for output.  Returns (sub_ids, lvl2_ids, n_sub):
+
+    * every segment < MAX_SEG entries: sub_ids is seg_ids as int32,
+      lvl2_ids is None, n_sub == num_segments;
+    * otherwise the entries of segment s map to compact sub-segments (one
+      per MAX_SEG - 1 entries, so n_sub ~ nnz / MAX_SEG + num_segments),
+      and lvl2_ids (length n_sub) maps each sub-segment back to its
+      segment."""
+    seg_ids = np.asarray(seg_ids, np.int32)
+    counts = np.bincount(seg_ids, minlength=num_segments)
+    max_c = int(counts.max()) if counts.size else 0
+    if max_c < MAX_SEG:
+        return seg_ids, None, num_segments
+    cap = MAX_SEG - 1
+    n_parts = np.maximum(-(-counts // cap), 1)   # empty segments keep a slot
+    sub_start = np.zeros(num_segments + 1, np.int64)
+    np.cumsum(n_parts, out=sub_start[1:])
+    n_sub = int(sub_start[-1])
+    order = np.argsort(seg_ids, kind="stable")
+    starts = np.zeros(num_segments + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    ranks = np.empty(len(seg_ids), np.int64)
+    ranks[order] = np.arange(len(seg_ids)) - starts[seg_ids[order]]
+    sub_ids = (sub_start[seg_ids] + ranks // cap).astype(np.int32)
+    lvl2_ids = np.repeat(np.arange(num_segments, dtype=np.int32), n_parts)
+    return sub_ids, lvl2_ids, n_sub
 
 
 class CooMatrix:

@@ -1,12 +1,13 @@
 """Per-stage profile of one MSM chunk (counterpart of tools/fusedprof.py).
 
     python3 -m polymath_tpu_torch.tools.fusedprof [--device cpu]
-        [--log-chunk 19] [--reps 3] [--seed 0]
+        [--log-chunk LOG] [--reps 3] [--seed 0]
 
 One chunk as ``ops/msm.py:msm_chunk`` runs it in the prover (fast form),
-at the port's bench chunk of 2^19 points by default, with c and the window
-count from ``msm.window_params`` and the scan length from
-``msm.scan_seq``.  The points are distinct, made on the device by
+at ``msm.default_chunk()`` points by default (2^19, or
+``POLYMATH_MSM_CHUNK``), with c and the window count from
+``msm.window_params`` and the scan length from ``msm.scan_seq`` (so
+``POLYMATH_MSM_C`` and ``POLYMATH_MSM_SEQ`` apply).  The points are distinct, made on the device by
 ``fixed_base_mul`` from random scalars; the chunk's scalars are random
 and canonical (numpy default_rng(seed)).  Each stage runs on its own, with
 its inputs already on the device, through the public helpers of
@@ -93,12 +94,14 @@ def random_scalars(rng: np.random.Generator, n: int, device) -> torch.Tensor:
 
 def main(argv=None) -> dict:
     ap = parser(__doc__.splitlines()[0])
-    ap.add_argument("--log-chunk", type=int, default=19)
+    ap.add_argument("--log-chunk", type=int, default=None,
+                    help="log2 of the chunk (default: msm.default_chunk())")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     dev = pick_device(args.device)
-    chunk = 1 << args.log_chunk
+    chunk = M.default_chunk() if args.log_chunk is None \
+        else 1 << args.log_chunk
     c, windows = M.window_params(chunk)
     seq = M.scan_seq(chunk)
     rng = np.random.default_rng(args.seed)

@@ -7,6 +7,10 @@ no silent fallback: with no CUDA device and no ``device="cpu"``,
 
 from __future__ import annotations
 
+import contextlib
+import os
+import subprocess
+
 import torch
 
 
@@ -31,3 +35,34 @@ def device_sync(x=None):
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
     return x
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
+    first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set (a string) or unset (None) environment variables for the block,
+    and restore what they were after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -10,11 +10,14 @@ one-launch madd scan and the tree kernels, at the shapes of the CPU tests
 over their levels against the recurrence they replaced; the MSM in its
 fused-scan configuration against the split one, each through its own
 launches; the golden DummyCircuit bytes for all three transcripts proved
-on the card; and the measurement tools' kernels (T1 gather variants, T2
+on the card; a key written by ``keys.save_dir`` and read back by
+``keys.load_dir`` on the card proving to the bytes of the key it came
+from; and the measurement tools' kernels (T1 gather variants, T2
 primitive chains) against their plain versions, with T2's SASS holding
 every step.  None needs jax: the card machine has none.
 """
 
+import copy
 import random
 
 import pytest
@@ -142,6 +145,26 @@ def test_msm_fused_equals_split_on_the_card(card):
 
 def test_golden_dummy_bytes_on_the_card(card):
     chip_smoke.golden(card)
+
+
+def test_key_store_round_trip_on_the_card(card, tmp_path):
+    """DummyCircuit, Rng(1234): the card's key through save_dir and
+    load_dir keeps its vk and SRS rows and proves to the same bytes."""
+    from polymath_tpu_torch.circuits import DummyCircuit
+    from polymath_tpu_torch.protocol import Polymath, Rng, keys
+    from polymath_tpu_torch.transcript import MerlinFieldTranscript
+    rng = Rng(1234)
+    pm = Polymath(transcript=MerlinFieldTranscript, device=card)
+    pk, vk = pm.setup(DummyCircuit(), rng)
+    keys.save_dir(pk, str(tmp_path / "pk"))
+    loaded = keys.load_dir(str(tmp_path / "pk"), card)
+    assert loaded.vk.to_bytes() == vk.to_bytes()
+    for name, rows in pk.device["srs"].items():
+        assert torch.equal(loaded.device["srs"][name], rows)
+    want = pm.prove(pk, DummyCircuit(5, 7), copy.deepcopy(rng))
+    got = pm.prove(loaded, DummyCircuit(5, 7), copy.deepcopy(rng))
+    assert got.to_bytes() == want.to_bytes()
+    assert pm.verify(vk, [35], got)
 
 
 @pytest.mark.parametrize("row", range(9))
