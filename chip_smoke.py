@@ -79,7 +79,21 @@ Phases, each printing what it found:
    throughput, and the SASS instructions of one inlined product), and
    msmtime (one MSM of 2^21 distinct points under each of its ten
    chunk:c[:seq] configurations; every configuration must give the first
-   one's point).  Every T1 and T2 kernel must have launched in this phase.
+   one's point).  Every T1 and T2 kernel must have launched in this phase;
+6. multi-device proving (polymath_tpu_torch/parallel), at most 120 s:
+   6a, ``python3 -m polymath_tpu_torch.parallel.dryrun --device cpu
+   --ranks 4`` in a subprocess that sees no card (four gloo CPU ranks:
+   the reference dry run's NTT, MSM and reduced-MiMC checks and the
+   sharded NTT at n = 4096, the only cross-rank layouts one card can
+   check); 6b, one NCCL rank on the card in this process: ntt_sharded at
+   2^21 and 2^22 both ways, bit for bit against ops/ntt.py:ntt, the
+   sharded MSM of 2^21 of the key's points against msm_device's point,
+   and with the phase-4 key, each from Rng(7), a warm sharded prove, then
+   split, sharded, sharded, split: every proof byte-equal to phase 4b's
+   split proof and verified, a wrong public input rejected; each prove's
+   seconds, peak memory (whole and by phase), collectives (11 all_to_all,
+   9 all_gather, 1 broadcast a sharded proof) and launches, which in a
+   steady sharded prove must equal the split proves'.
 
 B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
 phase 2 holds them against their plain versions and times them; their
@@ -88,7 +102,8 @@ at one step), since the split scan runs as one madd_scan launch a chunk;
 fusedprof launches it in phase 5 as the per-step yardstick.  T1 and T2
 are timed, compared and counted by phase 5.
 
-Then one JSON line with every kernel's numbers, the card's name and power
+Then one JSON line with every kernel's numbers (launches on the main
+path, a split prove's, and a steady sharded prove's), the card's name and power
 limit as nvidia-smi prints them, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero without that line.  It also exits non-zero, printing no
@@ -157,6 +172,11 @@ OFF_PATH_KERNELS = ("jac_madd",)
 SETUP_KERNELS = ("to_affine",)
 ALL_KERNELS = PROVE_KERNELS + FUSED_KERNELS + UNCALLED_KERNELS + \
     OFF_PATH_KERNELS + SETUP_KERNELS
+#: the collectives of one sharded proof (parallel/prover_sharded.py): two
+#: all_to_all for each of the five NTTs and one relayout; u, w, wu and u^2
+#: gathered and one window-sum gather for each of the five MSMs; r_a's
+#: broadcast
+SHARDED_COLLECTIVES = {"all_to_all": 11, "all_gather": 9, "broadcast": 1}
 
 
 def check_ptxas(names) -> None:
@@ -1007,6 +1027,9 @@ class PhaseProbe:
     @contextlib.contextmanager
     def __call__(self, label: str):
         import torch
+        if label.startswith("collective::"):   # nested in a prover phase
+            yield
+            return
         self.peak = max(self.peak, torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
         before = launches()
@@ -1373,6 +1396,171 @@ def measurement_path() -> dict:
             "launches": counts, "entries": entries}
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+#: phase 6's budget: it fails past this many seconds
+PHASE6_LIMIT_S = 120
+SHARDED_NTT_SIZES = (1 << 21, 1 << 22)
+SHARDED_MSM_POINTS = 1 << 21
+
+
+def random_words(dev, n: int, seed: int):
+    """(8, n) Fr words below 2^254 (< r), drawn on the card: valid
+    Montgomery words and canonical scalars alike."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randint(-2 ** 31, 2 ** 31, (8, n), dtype=torch.int32,
+                      device=dev, generator=g)
+    w[7] &= 0x3FFFFFFF
+    return w
+
+
+def multi_device_cpu() -> dict:
+    """Phase 6a: ``python3 -m polymath_tpu_torch.parallel.dryrun --device
+    cpu --ranks 4`` in a subprocess that sees no card: four gloo ranks on
+    the card's host, the one cross-rank layout a one-card machine can
+    check.  Returns its JSON line and wall seconds."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "polymath_tpu_torch.parallel.dryrun",
+         "--device", "cpu", "--ranks", "4", "--timeout", "80"], cwd=HERE,
+        env=env, capture_output=True, text=True, timeout=90)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU dry run exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line.get("ok") is not True or line.get("ranks") != 4:
+        raise AssertionError(f"the CPU dry run's line: {line}")
+    return {"line": line, "wall_s": wall}
+
+
+def multi_device_card(run: dict, split_proof) -> dict:
+    """Phase 6b: one NCCL rank on the card, in this process, through
+    parallel/launch.py (see ``card_rank``)."""
+    from polymath_tpu_torch.parallel import launch
+    return launch.run_ranks(card_rank, 1, "cuda", PHASE6_LIMIT_S, run,
+                            split_proof)[0]
+
+
+def card_rank(mesh, run: dict, split_proof) -> dict:
+    """The rank body of phase 6b: ``ntt_sharded`` at 2^21 and 2^22 both
+    ways, bit for bit against ops/ntt.py:ntt (a cold call, then the least
+    of 3 of each); the sharded MSM of 2^21 of the key's x-power points with
+    random scalars, the point of ``msm_device`` (the least of 2 of each);
+    then, with the phase-4 key and each from a fresh Rng(7), a warm
+    sharded prove and then split, sharded, sharded, split proves, all
+    byte-equal to phase 4b's split proof and verified, with their seconds,
+    peak memory (whole and by phase), launches and collectives."""
+    import copy
+    import torch
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.ops.msm import msm_device
+    from polymath_tpu_torch.ops.ntt import ntt
+    from polymath_tpu_torch.ops.prover import get_artifacts
+    from polymath_tpu_torch.parallel.mesh import COLLECTIVES, reset_collectives
+    from polymath_tpu_torch.parallel.msm_sharded import msm_sharded
+    from polymath_tpu_torch.parallel.ntt_sharded import (
+        columns_of, gather, ntt_sharded)
+    from polymath_tpu_torch.parallel.prover_sharded import (
+        create_proof_sharded)
+    from polymath_tpu_torch.protocol import Rng
+
+    def timed(fn, reps):
+        """(result, cold ms, least steady ms of ``reps``)"""
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        return res, times[0], min(times[1:])
+
+    dev = mesh.device
+    out = {"ntt_ms": {}}
+    for n in SHARDED_NTT_SIZES:
+        a = random_words(dev, n, n)
+        for inverse in (False, True):
+            got, cold, sharded_ms = timed(lambda: gather(ntt_sharded(
+                columns_of(a, mesh), mesh, inverse), mesh), 3)
+            want, _, one_ms = timed(lambda: ntt(a, inverse), 3)
+            compare(f"ntt_sharded n={n} inverse={inverse}", got, want)
+            out["ntt_ms"][f"{n}{' inverse' if inverse else ''}"] = {
+                "sharded_cold": cold, "sharded": sharded_ms,
+                "one_device": one_ms}
+        del a, got, want
+    xp = get_artifacts(run["pk"], dev).srs["x_powers_g1"]
+    sc = random_words(dev, SHARDED_MSM_POINTS, 3)
+    p_sh, _, sh_ms = timed(lambda: msm_sharded(xp, sc, mesh, fast=True), 2)
+    p_one, _, one_ms = timed(lambda: msm_device(xp, sc, fast=True), 2)
+    if p_sh != p_one:
+        raise AssertionError("the sharded MSM's point differs from "
+                             "msm_device's")
+    out["msm_ms"] = {"sharded": sh_ms, "one_device": one_ms}
+    del sc
+
+    out["proves"] = []
+    want = split_proof.to_bytes()
+    for label in ("sharded warm", "split", "sharded", "sharded", "split"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        reset_collectives()
+        circuit = run["circuit"]()
+        with PhaseProbe().installed() as probe:
+            t0 = time.time()
+            if label == "split":
+                proof = run["pm"].prove(run["pk"], circuit, Rng(7))
+            else:
+                proof = create_proof_sharded(circuit, run["pk"], Rng(7),
+                                             run["pm"].transcript, mesh)
+            torch.cuda.synchronize()
+            prove_s = time.time() - t0
+        if proof.to_bytes() != want:
+            raise AssertionError(f"{label} proof differs from phase 4b's "
+                                 f"split proof")
+        if not run["pm"].verify(run["vk"], [run["public"]], proof):
+            raise AssertionError(f"{label} proof rejected")
+        out["proves"].append({
+            "label": label, "prove_s": prove_s,
+            "peak_bytes": probe.overall_peak(), "launches": launches(),
+            "collectives": copy.deepcopy(COLLECTIVES),
+            "phase_peaks": {k: v["peak_bytes"]
+                            for k, v in probe.phases.items()}})
+    if run["pm"].verify(run["vk"], [(run["public"] + 1) % R], proof):
+        raise AssertionError("a wrong public input was accepted (sharded)")
+    return out
+
+
+def check_sharded(card: dict) -> None:
+    """Phase 6b's counts: every prove kernel launched in each steady
+    sharded prove, as many times as in the split proves beside it (one
+    rank adds no fold launch); 11 all_to_all, 9 all_gather (4 vectors, 5
+    window-sum gathers) and 1 broadcast a sharded proof, none a split
+    one."""
+    proves = card["proves"]
+    split = [r for r in proves if r["label"] == "split"]
+    for r in proves:
+        calls = {k: v["calls"] for k, v in r["collectives"].items()}
+        want = SHARDED_COLLECTIVES if r["label"] != "split" else \
+            dict.fromkeys(SHARDED_COLLECTIVES, 0)
+        if calls != want:
+            raise AssertionError(f"collectives of a {r['label']} prove "
+                                 f"{calls} != {want}")
+        if r["label"] != "sharded":
+            continue
+        missing = [k for k in PROVE_KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched in the sharded "
+                                 f"prove: {missing}")
+        if any(r["launches"] != s["launches"] for s in split):
+            raise AssertionError(f"sharded prove launched {r['launches']}, "
+                                 f"the split proves "
+                                 f"{[s['launches'] for s in split]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--constraints", type=int, default=(1 << 20) - 100)
@@ -1495,6 +1683,36 @@ def main() -> int:
     print(f"[5] msmtime, {mt['n']} points, one point in every config; "
           f"fastest {mt['fastest']}: {'; '.join(sweep)}", flush=True)
 
+    # 6. multi-device proving
+    print("[6] multi-device: (a) the dry run on 4 gloo CPU ranks; (b) one "
+          "NCCL rank on the card: ntt_sharded, the sharded MSM, sharded and "
+          "split proves from Rng(7) in turns", flush=True)
+    t0 = time.time()
+    cpu = multi_device_cpu()
+    print(f"[6a] dry run, 4 gloo ranks, {cpu['wall_s']:.1f} s wall: "
+          f"{json.dumps(cpu['line'])}", flush=True)
+    card = multi_device_card(run, turns[0]["proof"])
+    check_sharded(card)
+    print(f"[6b] ms, cold and least of 3 (one rank) against ops.ntt: "
+          f"{json.dumps(card['ntt_ms'])}; MSM of {SHARDED_MSM_POINTS} "
+          f"points ms {json.dumps(card['msm_ms'])}", flush=True)
+    for r in card["proves"]:
+        peaks = {k: round(v / 2**30, 3) for k, v in
+                 sorted(r["phase_peaks"].items())}
+        print(f"  {r['label']} prove: {r['prove_s']:.3f} s, peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB, collectives "
+              f"{json.dumps(r['collectives'])}; launches "
+              f"{json.dumps(r['launches'])}; peak GiB by phase "
+              f"{json.dumps(peaks)}", flush=True)
+    phase6_s = time.time() - t0
+    print(f"[6b] every proof byte-equal to phase 4b's split proof and "
+          f"verified; a steady sharded prove launches what a split prove "
+          f"does; phase 6 took {phase6_s:.1f} s", flush=True)
+    if phase6_s > PHASE6_LIMIT_S:
+        raise AssertionError(f"phase 6 took {phase6_s:.1f} s, over its "
+                             f"{PHASE6_LIMIT_S} s")
+    sharded = card["proves"][-2]["launches"]
+
     kernels = []
     for name in ALL_KERNELS:
         k = dict(numbers[name])
@@ -1505,6 +1723,7 @@ def main() -> int:
         else:
             k["launches"] = run["launches"][name]
             k["launches_per_prove"] = run["per_prove"][name]
+        k["launches_per_sharded_prove"] = sharded[name]
         if name in UNCALLED_KERNELS:
             k["note"] = "no path of the reference calls this kernel"
         if name in OFF_PATH_KERNELS:
@@ -1513,7 +1732,7 @@ def main() -> int:
                          "as its per-step yardstick (phase 5)")
         kernels.append(k)
     kernels += meas["entries"]
-    print(f"[6] total {time.time() - t_start:.1f} s", flush=True)
+    print(f"[done] total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -190,7 +190,15 @@ def declare(fn, nargs: int):
 
 
 def stream(t) -> int:
+    """The stream of ``t``'s card, for a launch on the current device's
+    context (ctypes launches there): raises unless they are one card, as
+    they are on a rank that called ``torch.cuda.set_device`` first."""
     import torch
+    current = torch.cuda.current_device()
+    if t.device.index != current:
+        raise RuntimeError(f"kernel operand on {t.device} but the current "
+                           f"device is cuda:{current}: call "
+                           f"torch.cuda.set_device({t.device.index}) first")
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -288,23 +288,30 @@ def _host_tail(rows: np.ndarray, scalars: list):
 class MsmPending:
     """An MSM whose launches are queued on the card; ``result()`` waits,
     checks the fast-mode flag, and finishes the window Horner and tail on
-    the host."""
+    the host.
+
+    Its parts can be had before ``result()`` (parallel/msm_sharded.py
+    gathers them over a group): ``wsums`` the (36, windows) Jacobian window
+    sums on the card, ``err`` the collision flag (a card bool, or None
+    when not fast), ``c`` and ``windows``, and ``tail`` the peeled tail as
+    (rows (t, 24), canonical scalar words (8, t)) on the card, or None.
+    Zero scalars and identity rows in the tail add nothing."""
 
     def __init__(self, wsums, err, c, windows, tail):
-        self._w = wsums
-        self._err = err
-        self._c = c
-        self._windows = windows
-        self._tail = tail
+        self.wsums = wsums
+        self.err = err
+        self.c = c
+        self.windows = windows
+        self.tail = tail
 
     def result(self):
-        if self._err is not None:
-            assert not bool(self._err), (
+        if self.err is not None:
+            assert not bool(self.err), (
                 "MSM madd collision: repeated base point hit the "
                 "fast-mode doubling skip; rerun with fast=False")
-        out = _horner_windows_host(self._w, self._c, self._windows)
-        if self._tail is not None:
-            rows, sc = self._tail
+        out = _horner_windows_host(self.wsums, self.c, self.windows)
+        if self.tail is not None:
+            rows, sc = self.tail
             words = sc.cpu().numpy()
             tail_pt = _host_tail(rows.cpu().numpy(), words_to_ints(words))
             if tail_pt is not None:

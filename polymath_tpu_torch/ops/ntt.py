@@ -141,17 +141,23 @@ def ntt_local_batched(x: torch.Tensor, inverse: bool,
     return out
 
 
-def _outer_twiddles(n: int, n1: int, n2: int, inverse: bool, device):
-    """(8, n2, n1) table w^(j2 k1 mod n), times n^-1 for the inverse."""
+def outer_twiddles(n: int, n1: int, inverse: bool, device,
+                   rows: range | None = None):
+    """(8, len(rows), n1) table w^(j2 k1 mod n) for j2 in ``rows`` (default
+    all n / n1 of them), times n^-1 for the inverse; built once a size."""
+    rows = range(n // n1) if rows is None else rows
+
     def make():
         pw = powers_of(fr_const(_root(n, inverse), device), n)
-        j2 = torch.arange(n2, dtype=torch.int64, device=device)[:, None]
+        j2 = torch.arange(rows.start, rows.stop, dtype=torch.int64,
+                          device=device)[:, None]
         k1 = torch.arange(n1, dtype=torch.int64, device=device)[None, :]
         tw = pw[:, (j2 * k1) & (n - 1)]
         if inverse:
             tw = fr_mul(tw, fr_const(pow(n, R - 2, R), device)[:, :, None])
         return tw
-    return _cached(("outer", n, inverse, str(device)), make)
+    return _cached(("outer", n, n1, rows.start, rows.stop, inverse,
+                    str(device)), make)
 
 
 def _ntt_4step(a: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
@@ -162,7 +168,7 @@ def _ntt_4step(a: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
     assert n1 <= MAX_LOCAL and n2 <= MAX_LOCAL, "n too large (max 2^22)"
     X = a.reshape(W, n1, n2).transpose(1, 2)             # (8, n2, n1)
     X = ntt_local_batched(X, inverse, scaled=False)      # [j2, k1]
-    X = fr_mul(X, _outer_twiddles(n, n1, n2, inverse, a.device))
+    X = fr_mul(X, outer_twiddles(n, n1, inverse, a.device))
     X = X.transpose(1, 2)                                # (8, n1, n2)
     X = ntt_local_batched(X, inverse, scaled=False)      # [k1, k2]
     return X.transpose(1, 2).reshape(W, n)

@@ -5,6 +5,11 @@ with all bulk math on the card: sparse SAP matvecs, NTTs, the size-2n
 squaring, the ~10n-coefficient quotient scan, and all large MSMs.  The
 host keeps witness synthesis, the two Fiat-Shamir rounds and the
 O(1)/O(m0) algebra.  Every vector is (8, N) Montgomery Fr words.
+
+``prove`` is the pipeline; the transforms, the MSMs and the blinding draw
+come from an ops object: ``LocalOps`` here (one device), or
+parallel/prover_sharded.py's ``ShardedOps`` (a process group), which is
+the whole difference between the two provers.
 """
 
 from __future__ import annotations
@@ -77,10 +82,39 @@ def get_artifacts(pk, device) -> DeviceArtifacts:
     return art
 
 
-def _stage1(art, x_m, z_r, device):
+class LocalOps:
+    """The single-device transforms, MSM and blinding draw of ``prove``.
+    ``scope`` prefixes its phase labels."""
+
+    scope = "prover"
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def coeffs(self, evals: torch.Tensor) -> torch.Tensor:
+        """Coefficients of the polynomial with these (8, n) evaluations."""
+        return ntt(evals, inverse=True)
+
+    def square(self, u: torch.Tensor) -> torch.Tensor:
+        """u^2's 2n coefficients from u's n: the size-2n transform of u
+        padded with zeros, squared, and back."""
+        n = u.shape[1]
+        u_pad = torch.cat([u, fr_zeros(n, self.device)], dim=1)
+        return ntt(fr_sqr(ntt(u_pad)), inverse=True)
+
+    def msm(self, bases, scalars, **kw):
+        return msm_device(bases, scalars, **kw)
+
+    def blinding(self, rng) -> tuple:
+        """r_a's two coefficients."""
+        return rng.randrange(R), rng.randrange(R)
+
+
+def _stage1(art, x_m, z_r, ops):
     """z, u/w coefficient polys, h and the exactness count: everything
     between witness synthesis and the first Fiat-Shamir round."""
     n, m0, n_r = art.n, art.m0, art.n_r
+    device = ops.device
     az = coo_matvec(art.coo_a, z_r)
     bz = coo_matvec(art.coo_b, z_r)
     cz = coo_matvec(art.coo_c, z_r)
@@ -107,12 +141,11 @@ def _stage1(art, x_m, z_r, device):
     w_b3 = fr_add(fr_mul(four, cz), y[:, m0:])
     w_evals = torch.cat([w_b1, y[:, :m0], w_b3, y[:, m0:], pad], dim=1)
 
-    u_coeffs = ntt(u_evals, inverse=True)
-    w_coeffs = ntt(w_evals, inverse=True)
+    u_coeffs = ops.coeffs(u_evals)
+    w_coeffs = ops.coeffs(w_evals)
 
     # u^2 via the 2n transform
-    u2_ev = fr_sqr(ntt(torch.cat([u_coeffs, fr_zeros(n, device)], dim=1)))
-    u2 = ntt(u2_ev, inverse=True)
+    u2 = ops.square(u_coeffs)
     h_num = fr_sub(u2, torch.cat([w_coeffs, fr_zeros(n, device)], dim=1))
     # vanishing-division exactness (prover.rs:107-108): dividing p
     # (deg < 2n) by X^n - 1 gives q = p[n:], r = p[:n] + p[n:]; the
@@ -122,7 +155,7 @@ def _stage1(art, x_m, z_r, device):
 
     # witness-only u: rows < 2*m0 zeroed (instance columns live there)
     wu_evals = torch.cat([fr_zeros(2 * m0, device), apb, amb, pad], dim=1)
-    wu_coeffs = ntt(wu_evals, inverse=True)
+    wu_coeffs = ops.coeffs(wu_evals)
     return dict(z=z, u_coeffs=u_coeffs, w_coeffs=w_coeffs, h_num=h_num,
                 wu_coeffs=wu_coeffs, vanish_rem_nz=vanish_rem_nz)
 
@@ -165,28 +198,35 @@ def _stage2(s1, n, sigma, d_len, ra0, ra1, x2_m, eval_sum, device):
 
 
 def create_proof_device(circuit, pk, rng, transcript_cls, device) -> Proof:
+    return prove(circuit, pk, rng, transcript_cls, LocalOps(device))
+
+
+def prove(circuit, pk, rng, transcript_cls, ops) -> Proof:
+    """The proof pipeline with ``ops``'s transforms, MSMs and blinding
+    draw; its phases are scoped ``<ops.scope>::<phase>``."""
+    device, scope = ops.device, ops.scope
     art = get_artifacts(pk, device)
     n, m0, cols, sigma = art.n, art.m0, art.cols, art.sigma
 
-    with phase("prover::witness synthesis"):
+    with phase(f"{scope}::witness synthesis"):
         cs = synthesize(circuit, ConstraintSystem.PROVE)
     instance = cs.instance_assignment
     witness = cs.witness_assignment
     assert len(instance) == m0
 
-    with phase("prover::h2d assignment"):
+    with phase(f"{scope}::h2d assignment"):
         x_m = fr_ints_to_mont_device(instance, device)
         z_r = sync(fr_ints_to_mont_device(instance + witness, device))
 
-    with phase("prover::stage1 (matvecs+NTTs+h)"):
-        s1 = _stage1(art, x_m, z_r, device)
+    with phase(f"{scope}::stage1 (matvecs+NTTs+h)"):
+        s1 = _stage1(art, x_m, z_r, ops)
     # device analogue of prover.rs:107-108 (a kernel or witness bug must
     # surface as a clean error here, not as an invalid proof)
     assert s1["vanish_rem_nz"] == 0, \
         "vanishing division (u^2 - w) / Z_H must be exact"
 
     # -- blinding + commitments ------------------------------------------
-    ra0_i, ra1_i = rng.randrange(R), rng.randrange(R)
+    ra0_i, ra1_i = ops.blinding(rng)
 
     # x-power SRS bases are distinct by construction -> fast madd mode;
     # uj_wj columns CAN repeat (structurally identical circuit columns,
@@ -194,24 +234,24 @@ def create_proof_device(circuit, pk, rng, transcript_cls, device) -> Proof:
     # reruns safe only if the collision flag fired.  All four MSMs are
     # queued on the card before any host combine reads a result.
     xp = art.srs["x_powers_g1"]
-    with phase("prover::msm a+r+c dispatch"):
+    with phase(f"{scope}::msm a+r+c dispatch"):
         u = s1["u_coeffs"]
-        p_a = msm_device(xp, u, mont=True, fast=True, n_eff=n, defer=True)
+        p_a = ops.msm(xp, u, mont=True, fast=True, n_eff=n, defer=True)
         z1 = fr_zeros(1, device)
         two_ra_u = fr_add(
             fr_mul(fr_const(2 * ra0_i % R, device), torch.cat([u, z1], 1)),
             fr_mul(fr_const(2 * ra1_i % R, device), torch.cat([z1, u], 1)))
-        p_r = msm_device(xp, two_ra_u, mont=True, fast=True, n_eff=n + 1,
-                         defer=True)
+        p_r = ops.msm(xp, two_ra_u, mont=True, fast=True, n_eff=n + 1,
+                      defer=True)
         del two_ra_u
         ujwj = art.srs["uj_wj_lcs_by_y_alpha_g1"]
-        p_cw = msm_device(ujwj, s1["z"][:, m0:], mont=True, fast=True,
-                          n_eff=cols - m0, defer=True)
+        p_cw = ops.msm(ujwj, s1["z"][:, m0:], mont=True, fast=True,
+                       n_eff=cols - m0, defer=True)
         zh = art.srs["x_powers_zh_by_y_alpha_g1"]
-        p_ch = msm_device(zh, s1["h_num"][:, n:2 * n - 1], mont=True,
-                          fast=True, n_eff=n - 1, defer=True)
+        p_ch = ops.msm(zh, s1["h_num"][:, n:2 * n - 1], mont=True,
+                       fast=True, n_eff=n - 1, defer=True)
 
-    with phase("prover::msm a+r+c finalize"):
+    with phase(f"{scope}::msm a+r+c finalize"):
         a_u = p_a.result()
         # host: tiny r_a MSMs over the 3/2-element SRS vectors
         a_ra = bls.G1.msm(pk.x_powers_y_alpha_g1, [ra0_i, ra1_i])
@@ -226,8 +266,8 @@ def create_proof_device(circuit, pk, rng, transcript_cls, device) -> Proof:
         try:
             c_w = p_cw.result()
         except AssertionError:
-            c_w = msm_device(ujwj, s1["z"][:, m0:], mont=True,
-                             n_eff=cols - m0)
+            c_w = ops.msm(ujwj, s1["z"][:, m0:], mont=True,
+                          n_eff=cols - m0)
         c_h = p_ch.result()
     c_g1 = bls.G1.add(bls.G1.add(c_w, c_h), r_g1)
 
@@ -248,7 +288,7 @@ def create_proof_device(circuit, pk, rng, transcript_cls, device) -> Proof:
     x2 = common.compute_x2(t, x1, [a_at_x1, c_at_x1])
 
     d_len = 2 * (n - 1) + sigma * (MINUS_ALPHA + MINUS_GAMMA) + 1
-    with phase("prover::stage2a (D numerator)"):
+    with phase(f"{scope}::stage2a (D numerator)"):
         dnum = sync(_stage2(
             s1, n, sigma, d_len, fr_const(ra0_i, device),
             fr_const(ra1_i, device), fr_const(x2, device),
@@ -256,7 +296,7 @@ def create_proof_device(circuit, pk, rng, transcript_cls, device) -> Proof:
     # stage-1 polynomials are consumed: free them before the divide and
     # the 10n-point d-MSM
     s1.clear()
-    with phase("prover::stage2b (quotient scan)"):
+    with phase(f"{scope}::stage2b (quotient scan)"):
         q_mont, rem = synthetic_divide_device(dnum, x1_m)
         sync(q_mont)
     del dnum
@@ -265,8 +305,8 @@ def create_proof_device(circuit, pk, rng, transcript_cls, device) -> Proof:
         "quotient division by (X - x1) must be exact"
 
     ygz = art.srs["x_powers_y_gamma_z_g1"]
-    with phase("prover::msm d_g1 (~10n)"):
-        d_g1 = msm_device(ygz, q_mont, mont=True, fast=True,
-                          n_eff=d_len - 1)
+    with phase(f"{scope}::msm d_g1 (~10n)"):
+        d_g1 = ops.msm(ygz, q_mont, mont=True, fast=True,
+                       n_eff=d_len - 1)
 
     return Proof(a_g1=a_g1, c_g1=c_g1, a_at_x1=a_at_x1, d_g1=d_g1)

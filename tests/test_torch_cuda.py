@@ -12,7 +12,9 @@ fused-scan configuration against the split one, each through its own
 launches; the golden DummyCircuit bytes for all three transcripts proved
 on the card; a key written by ``keys.save_dir`` and read back by
 ``keys.load_dir`` on the card proving to the bytes of the key it came
-from; and the measurement tools' kernels (T1 gather variants, T2
+from; the sharded NTT and MSM (parallel/) on one NCCL rank against the
+single-device results, and a kernel operand off the current card
+refused; and the measurement tools' kernels (T1 gather variants, T2
 primitive chains) against their plain versions, with T2's SASS holding
 every step.  None needs jax: the card machine has none.
 """
@@ -210,3 +212,61 @@ def test_gather_rows_ragged_with_out_of_range_indices(card):
     got = cuda_gather.gather_rows(table, idx)
     assert torch.equal(got, cuda_gather.gather_rows_plain(table, idx))
     assert not bool(got[:, 0, :2].any()) and bool(got[:, 1].any())
+
+
+def test_sharded_ntt_and_msm_on_one_nccl_rank(card):
+    """parallel/ on one NCCL rank in this process: the sharded NTT both
+    ways and the stage-1 chain at n = 4096 against ops/ntt.py on the card,
+    word for word; the sharded MSM of 300 points in chunks of 64 (fast,
+    rerun safe on a collision flag), the host tail on and off, against
+    msm_device's point on the card."""
+    import numpy as np
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.ops import msm as M
+    from polymath_tpu_torch.ops.curve import points_to_device
+    from polymath_tpu_torch.ops.limbs import FR_SPEC, ints_to_words
+    from polymath_tpu_torch.ops.ntt import ntt
+    from polymath_tpu_torch.ops.prover import LocalOps, fr_ints_to_mont_device
+    from polymath_tpu_torch.parallel import dryrun, launch
+    from polymath_tpu_torch.utils.config import environ
+    rng = random.Random(8)
+    coeffs = [rng.randrange(R) for _ in range(4096)]
+    pts = chip_smoke.host_points(300)
+    vals = [rng.randrange(R) for _ in pts]
+    rows = points_to_device(pts).T.contiguous().numpy()
+    words = ints_to_words(vals, FR_SPEC.L)
+    calls = [(dryrun.transforms, (coeffs,), {})]
+    calls += [(dryrun.msm, (rows, words, True), {
+        "POLYMATH_MSM_CHUNK": "64", "POLYMATH_MSM_TAIL": tail})
+        for tail in ("1", "0")]
+    got = launch.run_ranks(dryrun.steps, 1, "cuda", 120, calls)[0]
+    a = fr_ints_to_mont_device(coeffs, card)
+    local = LocalOps(card)
+    want = {"forward": ntt(a), "inverse": ntt(a, inverse=True), "back": a,
+            "chain": local.square(local.coeffs(a))}
+    for k, w in want.items():
+        assert np.array_equal(got[0][k], w.cpu().numpy()), k
+    # k G for k = 1..300: a bucket's running sum can meet its next leaf,
+    # so the fast form may flag a collision; both then rerun safe, and at
+    # one rank in the same chunks they flag alike
+    rows_t = torch.from_numpy(rows).to(card)
+    words_t = torch.from_numpy(words).to(card)
+    for res, (_, _, env) in zip(got[1:], calls[1:]):
+        with environ(**env):
+            try:
+                one, rerun = M.msm_device(rows_t, words_t, fast=True), False
+            except AssertionError:
+                one, rerun = M.msm_device(rows_t, words_t), True
+        assert res == {"point": dryrun.point_ints(one), "rerun": rerun}
+
+
+def test_operand_off_the_current_card_raises(card, monkeypatch):
+    """A rank whose current device is not its tensors' card (it skipped
+    torch.cuda.set_device) gets an error from every kernel wrapper, not a
+    launch on the wrong context."""
+    from polymath_tpu_torch.ops.cuda_field import fr_mul
+    x = chip_smoke.field_inputs(card, 64, 1)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: x.device.index + 1)
+    with pytest.raises(RuntimeError, match="current device is cuda:"):
+        fr_mul(x, x)

@@ -121,3 +121,26 @@ def test_msm_duplicate_bases_safe_and_fast_flag(points):
     assert M.msm_device(_rows([p, p]), _scalars([5, 5])) == \
         g1_msm([p, p], [5, 5])
     assert M.msm_device(_rows([p]), _scalars([0])) is None
+
+
+def test_deferred_msm_parts_before_result(points):
+    """A deferred MSM's window sums, collision flag, window shape and
+    peeled tail are there before ``result()`` (parallel/msm_sharded.py
+    gathers them), and composing them gives msm_device's point."""
+    rng = random.Random(43)
+    chunk = 16
+    n = 2 * chunk + 5
+    pts = list(points[:n])
+    sc = [rng.randrange(R) for _ in range(n)]
+    pend = M.msm_device(_rows(pts), _scalars(sc), chunk=chunk, fast=True,
+                        defer=True)
+    c, windows = M.window_params(chunk)
+    assert (pend.c, pend.windows) == (c, windows)
+    assert tuple(pend.wsums.shape) == (36, windows)
+    assert pend.err is not None and not bool(pend.err)
+    rows, tail_sc = pend.tail
+    assert tuple(rows.shape) == (5, 24) and tuple(tail_sc.shape) == (8, 5)
+    body = M.MsmPending(pend.wsums, None, c, windows, None).result()
+    tail = M.MsmPending(pend.wsums, None, c, windows, pend.tail).result()
+    assert body == g1_msm(pts[:2 * chunk], sc[:2 * chunk])
+    assert tail == pend.result() == g1_msm(pts, sc)
