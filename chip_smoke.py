@@ -12,18 +12,21 @@ Phases, each printing what it found:
    each build leaves beside its library, so a cached build is checked
    too), and the blocks of the scan kernels the card holds at once;
 2. kernels: every kernel (B1-B9, the port-only to_affine, the one-launch
-   madd scan and the two tree kernels that the MSM runs in the place of
-   per-step jac_madd and per-launch jac_add, and the quotient scan's
-   reduce and apply kernels that replace its per-step fr_mul) against its
-   plain
-   PyTorch version on the same inputs on the card, bit for bit (0
-   mismatches allowed; the tree kernels add in another order than their
-   plain versions, so their outputs are compared as affine points): first
+   madd scan and the three tree kernels that the MSM runs in the place of
+   per-step jac_madd and per-launch jac_add -- row offsets, window fold
+   and the sum of the chunks' or ranks' window sums -- and the quotient
+   scan's reduce and apply kernels that replace its per-step fr_mul)
+   against its plain PyTorch version on the same inputs on the card, bit
+   for bit (0 mismatches allowed; the tree kernels add in another order
+   than their plain versions, so their outputs are compared as affine
+   points): first
    at moderate shapes that hold the edge cases (field words on which a
    carry-chain fault shows -- 0, 1, p - 1, p - 2, R mod p, R^2 mod p and
    runs of 0xffffffff words -- in the inputs of every field and point
    kernel, the degenerate point cases, dead and colliding MSM leaves,
-   identity, P + P and P + (-P) in the tree, the gather at a ragged row
+   identity, P + P and P + (-P) in the tree, the sum of 1, 2, 3, 4, 40
+   and 130 sets with an identity set, P + P, P + (-P) and a window of one
+   repeated point planted, the gather at a ragged row
    count with indices outside the table, the quotient scan's launches at
    one to three blocks of rows, ragged, in both orders, with edge words in
    the carries and the multiplier, and its whole scan across four levels
@@ -31,7 +34,9 @@ Phases, each printing what it found:
    the main path's shapes, where the kernel's time, its plain version's
    time and its bound are taken (the quotient scan at D + 1 = 20,971,543
    coefficients, also whole: time, launches and peak memory against the
-   recurrence it replaced);
+   recurrence it replaced; the sum of sets at the d MSM's (40, 36, 20)
+   and the other MSMs' (4, 36, 20), beside the 39- and 3-launch jac_add
+   chains it replaced, on the same inputs);
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
    setup and prove on the card, for all three transcripts, against
    tests/fixtures/golden_dummy.json;
@@ -39,9 +44,10 @@ Phases, each printing what it found:
    bench.py), Merlin, seed 0: setup, a warm prove, a second prove, a
    verify of each and a rejected wrong public input, with per-phase times,
    peak device memory and each kernel's launch count (every kernel of
-   PROVE_KERNELS > 0 in a prove, the port-only to_affine > 0 in setup; one
-   madd_scan per MSM chunk and no jac_madd, at most 3 tree launches a
-   chunk, fewer jac_add launches than chunks; the quotient scan phase
+   PROVE_KERNELS > 0 in a prove, the port-only to_affine and jac_add > 0
+   in setup; one madd_scan per MSM chunk and no jac_madd, at most 3 tree
+   launches a chunk, no jac_add and one sum_sets for each MSM of more than
+   one chunk (ops/msm.py:RUNS counts them); the quotient scan phase
    launching only its reduce and apply kernels, 2 a level and 1 for the
    top, no fr_mul), and the second prove's peak memory and launches by
    phase;
@@ -50,8 +56,8 @@ Phases, each printing what it found:
    split), each from a fresh Rng(7): the proofs must be byte-equal and
    verify, a wrong public input must be rejected, and each fused prove
    must launch fused_scan (B7) once per MSM chunk, no madd_scan, jac_madd
-   or gather_rows, and at most 3 tree launches a chunk; the quotient scan
-   as in phase 4.  Per-phase times, peak device memory (also by phase)
+   or gather_rows, at most 3 tree launches a chunk, and the sums of sets
+   as in phase 4; the quotient scan as in phase 4.  Per-phase times, peak device memory (also by phase)
    and launches of each;
 4c. the key store and the bench entry, with the phase-4 key:
    ``protocol/keys.save_dir`` into a fresh directory under build/ (its
@@ -93,7 +99,8 @@ Phases, each printing what it found:
    split proof and verified, a wrong public input rejected; each prove's
    seconds, peak memory (whole and by phase), collectives (11 all_to_all,
    9 all_gather, 1 broadcast a sharded proof) and launches, which in a
-   steady sharded prove must equal the split proves'.
+   steady sharded prove must equal the split proves' and meet phase 4's
+   MSM rule (one rank adds no sum of the ranks' sums).
 
 B8 (jac_double) and B9 (fr_butterfly) are on no path of the reference:
 phase 2 holds them against their plain versions and times them; their
@@ -103,8 +110,9 @@ fusedprof launches it in phase 5 as the per-step yardstick.  T1 and T2
 are timed, compared and counted by phase 5.
 
 Then one JSON line with every kernel's numbers (launches on the main
-path, a split prove's, and a steady sharded prove's), the card's name and power
-limit as nvidia-smi prints them, and as the last line
+path, a split prove's, a steady sharded prove's, and a setup's for the
+setup kernels), the card's name and power limit as nvidia-smi prints
+them, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the script then
 exits non-zero without that line.  It also exits non-zero, printing no
 result, when no CUDA card is visible or the package is missing.
@@ -150,13 +158,14 @@ BFLY_OPS = FR_MUL_OPS                              # one product a pair
 
 
 #: the kernels every (split) prove launches: B1, B2, B4, B6, the one-launch
-#: madd scan (B3), B5 and the two tree kernels that replace its launches in
-#: the MSM, the quotient scan's two kernels (B1's main-path use); the
-#: kernel that replaces the gather and madd scan in the fused
-#: configuration; kernels no prove launches (two that no path of the
-#: reference calls, and B3 at one step); the port-only setup kernel
-PROVE_KERNELS = ("fr_mul", "fr_sqr", "madd_scan", "gather_rows", "jac_add",
-                 "row_offsets", "window_fold", "ntt_local",
+#: madd scan (B3), the three tree kernels that replace B5's launches in the
+#: MSM, the quotient scan's two kernels (B1's main-path use); the kernel
+#: that replaces the gather and madd scan in the fused configuration;
+#: kernels no prove launches (two that no path of the reference calls, and
+#: B3 at one step); the setup kernels: the port-only to_affine and B5
+#: itself (ops/fixed_base.py, 32 launches a batch)
+PROVE_KERNELS = ("fr_mul", "fr_sqr", "madd_scan", "gather_rows",
+                 "row_offsets", "window_fold", "sum_sets", "ntt_local",
                  "affine_scan_reduce", "affine_scan_apply")
 SPLIT_ONLY = ("madd_scan", "gather_rows")
 TREE_KERNELS = ("row_offsets", "window_fold")
@@ -166,10 +175,20 @@ POLY_SOURCE = "polymath_tpu_torch/csrc/poly.cu"
 POLY_REPLACES = "polymath_tpu/ops/pallas_field.py:37"
 POLY_NOTE = ("B1 (_mul_kernel) as the reference's quotient scan runs it: "
              "poly_jax.py:affine_scan :23-75, its fr_mul carry :70-72")
+TREE_SOURCE = "polymath_tpu_torch/csrc/tree.cu"
+ADD_REPLACES = "polymath_tpu/ops/pallas_curve.py:32"
+SUM_SETS_NOTE = ("B5 (_add_kernel) as the reference adds an MSM's chunk "
+                 "sums, a fori_loop of jac_add (ops/msm.py:325-336), and "
+                 "the ranks' sums (parallel/msm_sharded.py:25-34)")
+#: the sums of sets phase 2 checks, and those it times (the d MSM's 40
+#: chunks, the other MSMs' 4) with the dependent adds on the kernel's
+#: critical path, ceil(log2 k)
+SUM_SETS_CHECKED = (1, 2, 3, 4, 40, 130)
+SUM_SETS_TIMED = {40: 6, 4: 2}
 FUSED_KERNELS = ("fused_scan",)
 UNCALLED_KERNELS = ("jac_double", "fr_butterfly")
 OFF_PATH_KERNELS = ("jac_madd",)
-SETUP_KERNELS = ("to_affine",)
+SETUP_KERNELS = ("to_affine", "jac_add")
 ALL_KERNELS = PROVE_KERNELS + FUSED_KERNELS + UNCALLED_KERNELS + \
     OFF_PATH_KERNELS + SETUP_KERNELS
 #: the collectives of one sharded proof (parallel/prover_sharded.py): two
@@ -382,6 +401,37 @@ def tree_case(windows: int, rows: int, n: int, seed: int):
     return tuple(np.ascontiguousarray(x) for x in (tot, ps, cnt, r_of, offs))
 
 
+def sum_sets_case(k: int, windows: int, seed: int):
+    """k sets of window sums as discrete logs (numpy default_rng(seed)):
+    (k, windows) small signed k of the points k G, random but for the
+    planted windows (those that fit): 0, set 0 the identity; 1, sets 0, 1
+    and h the same point, h the stride of the kernel's first level (half
+    the power of two at or above k), so that P + P meets the doubling
+    branch in the serial sum and in the tree; 2, sets 1 and h the
+    negation of set 0 (P + (-P)); 3, every set the same point (the c_w
+    MSM's chunks, BenchCircuit's vector repeating one digit)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ks = rng.integers(-40, 41, (k, windows))
+    h = (1 << (k - 1).bit_length()) // 2
+    if windows > 0:
+        ks[0, 0] = 0
+    if windows > 1 and k > 1:
+        ks[[0, 1, h], 1] = 13
+    if windows > 2 and k > 1:
+        ks[0, 2], ks[[1, h], 2] = 11, -11
+    if windows > 3:
+        ks[:, 3] = 7
+    return ks
+
+
+def sum_sets_inputs(dev, k: int, windows: int, seed: int):
+    """sum_sets_case on ``dev``: ((k, 36, windows) Jacobian words with
+    Z != 1, edge-word Z in the first lanes (jac_words), ks)."""
+    ks = sum_sets_case(k, windows, seed)
+    return jac_words(ks, seed).permute(1, 0, 2).contiguous().to(dev), ks
+
+
 def host_point(k: int):
     """k G for a small signed k (None for 0)."""
     from polymath_tpu_torch.hostmath import bls12_381 as bls
@@ -551,7 +601,8 @@ def check_kernels(dev) -> dict:
     row, a ragged second row, three blocks of rows) in both orders, with
     edge words in the elements and the carries and as the multiplier
     (scan_multipliers), and its whole scan at 4,103 elements (three levels
-    of row totals) against plain_scan.
+    of row totals) against plain_scan; the sum of SUM_SETS_CHECKED sets
+    of 20 windows (sum_sets_case's planted windows).
     Raises on any difference; returns {kernel: largest word error}."""
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
@@ -629,6 +680,11 @@ def check_kernels(dev) -> dict:
         errs["window_fold"] = max(errs.get("window_fold", 0), compare_points(
             "window_fold" + what, cuda_tree.window_fold(ps, cnt, r, o),
             cuda_tree.window_fold_plain(ps, cnt, r, o)))
+    for k in SUM_SETS_CHECKED:
+        parts, _ = sum_sets_inputs(dev, k, 20, 50 + k)
+        errs["sum_sets"] = max(errs.get("sum_sets", 0), compare_points(
+            f"sum_sets (k {k})", cuda_tree.sum_sets(parts),
+            cuda_tree.sum_sets_plain(parts)))
 
     table = torch.cat([leaf.T, acc[:24].T]).contiguous()   # (8192, 24)
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -686,6 +742,7 @@ def measure_kernels(dev, errs: dict) -> dict:
     """Each kernel and its plain version at the main path's shapes: both
     run on the same inputs, are compared, then timed.  Returns
     {kernel: the JSON entry without launches}."""
+    import numpy as np
     import torch
     from polymath_tpu_torch.ops import cuda_curve, cuda_field, cuda_gather
     from polymath_tpu_torch.ops import cuda_poly, cuda_scan, cuda_tree, poly
@@ -796,6 +853,43 @@ def measure_kernels(dev, errs: dict) -> dict:
     out["jac_add"].update(window_sums_ms=w_ms, window_sums_bound_ms=w_bound)
     print(f"  jac_add at the prover's (36, 20) window sums: {w_ms:.4f} ms, "
           f"bound {w_bound:.6f} ms ({w_by})", flush=True)
+
+    # the sums of an MSM's chunk sums at the prover's 20 windows, beside
+    # the jac_add chains they replaced (the plain version over the jac_add
+    # kernel: k - 1 launches of one add a lane) on the same inputs.  Work:
+    # a window's L sets other than the identity need L - 1 adds.
+    def chain(parts):
+        return cuda_tree.sum_sets_plain(parts, cuda_curve.jac_add)
+
+    for k, depth in SUM_SETS_TIMED.items():
+        parts, ks = sum_sets_inputs(dev, k, 20, 60 + k)
+        adds = int(np.maximum((ks != 0).sum(0) - 1, 0).sum())
+        nbytes, ops = 36 * 4 * 20 * (k + 1), ADD_OPS * adds
+        if k == 40:
+            entry("sum_sets", TREE_SOURCE, ADD_REPLACES,
+                  "(40, 36, 20) window sums",
+                  lambda: cuda_tree.sum_sets(parts),
+                  lambda: cuda_tree.sum_sets_plain(parts), 50, nbytes, ops,
+                  cmp=compare_points)
+            s_ms = out["sum_sets"]["ms"]
+        else:
+            cuda_tree.sum_sets(parts)
+            got, s_ms = timed_ms(lambda: cuda_tree.sum_sets(parts), dev, 50)
+            compare_points(f"sum_sets ({k}, 36, 20)", got,
+                           cuda_tree.sum_sets_plain(parts))
+        s_bound, s_by = bound_ms(nbytes, ops)
+        chain(parts)
+        got, c_ms = timed_ms(lambda: chain(parts), dev, 20)
+        compare_points(f"jac_add chain ({k}, 36, 20)", got,
+                       cuda_tree.sum_sets(parts))
+        out["sum_sets"].setdefault("by_k", {})[str(k)] = {
+            "ms": s_ms, "bound_ms": s_bound, "bound_by": s_by,
+            "critical_path_adds": depth, "chain_ms": c_ms,
+            "chain_launches": k - 1}
+        print(f"  sum_sets ({k}, 36, 20): {s_ms:.4f} ms, bound "
+              f"{s_bound:.6f} ms ({s_by}), {depth} dependent adds; the "
+              f"{k - 1}-launch jac_add chain {c_ms:.4f} ms", flush=True)
+    out["sum_sets"]["note"] = SUM_SETS_NOTE
     # no early return: every lane, the identity ones too, does the work
     entry("jac_double", "polymath_tpu_torch/csrc/g1.cu",
           "polymath_tpu/ops/pallas_curve.py:41", "(2^20 lanes)",
@@ -865,8 +959,7 @@ def measure_kernels(dev, errs: dict) -> dict:
         local, d_sorted, M.window_params(M.default_chunk())[0])
     totals = local[:, seq - 1]
     windows, rows = totals.shape[1:]
-    entry("row_offsets", "polymath_tpu_torch/csrc/tree.cu",
-          "polymath_tpu/ops/pallas_curve.py:32",
+    entry("row_offsets", TREE_SOURCE, ADD_REPLACES,
           f"(36, {windows}, {rows}) row totals",
           lambda: cuda_tree.row_offsets(totals),
           lambda: cuda_tree.row_offsets_plain(totals), 10,
@@ -877,8 +970,7 @@ def measure_kernels(dev, errs: dict) -> dict:
     n_live = (cnt > 0).sum(1)
     adds = int(((cnt > 0) & (r_of > 0)).sum()) \
         + int((n_live - 1).clamp(min=0).sum())
-    entry("window_fold", "polymath_tpu_torch/csrc/tree.cu",
-          "polymath_tpu/ops/pallas_curve.py:32",
+    entry("window_fold", TREE_SOURCE, ADD_REPLACES,
           f"(36, {windows}, {ps.shape[2]}) thresholds",
           lambda: cuda_tree.window_fold(ps, cnt, r_of, offs),
           lambda: cuda_tree.window_fold_plain(ps, cnt, r_of, offs), 10,
@@ -1010,9 +1102,19 @@ def launches(tools: bool = False) -> dict:
 
 
 def reset_launches() -> None:
+    """Every launch count to 0, and ops/msm.py's count of MSMs."""
+    from polymath_tpu_torch.ops import msm as M
     for mod in _counted_modules() + _counted_modules(tools=True):
         for k in mod.LAUNCHES:
             mod.LAUNCHES[k] = 0
+    for k in M.RUNS:
+        M.RUNS[k] = 0
+
+
+def multi_chunk_msms() -> int:
+    """MSMs of more than one chunk since the last reset (ops/msm.py)."""
+    from polymath_tpu_torch.ops import msm as M
+    return M.RUNS["multi_chunk"]
 
 
 class PhaseProbe:
@@ -1093,17 +1195,19 @@ def main_path(dev, num_constraints: int) -> dict:
     pm = Polymath(transcript=MerlinFieldTranscript, device=dev)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    counts = {}
+    counts, multi = {}, {}
 
     def step(label, fn):
-        before = launches()
+        before, multi0 = launches(), multi_chunk_msms()
         t0 = time.time()
         res = fn()
         torch.cuda.synchronize()
         dt = time.time() - t0
         after = launches()
         counts[label] = {k: after[k] - before[k] for k in after}
-        print(f"  {label}: {dt:.3f} s; launches {counts[label]}", flush=True)
+        multi[label] = multi_chunk_msms() - multi0
+        print(f"  {label}: {dt:.3f} s; launches {counts[label]}; MSMs of "
+              f"more than one chunk {multi[label]}", flush=True)
         return res, dt
 
     (pk, vk), setup_s = step("setup", lambda: pm.setup(circuit(), rng))
@@ -1140,30 +1244,33 @@ def main_path(dev, num_constraints: int) -> dict:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    check_msm_launches(per_prove, "madd_scan")
+    check_msm_launches(per_prove, "madd_scan", multi["prove 2"])
     check_quotient_launches(probe)
-    return {"launches": total, "per_prove": per_prove, "setup_s": setup_s,
+    return {"launches": total, "per_prove": per_prove,
+            "per_setup": counts["setup"], "setup_s": setup_s,
             "warm_prove_s": warm_s, "prove_s": prove_s,
             "verify_ms": verify_s * 1e3, "peak_bytes": peak, "n": vk.n,
             "pm": pm, "pk": pk, "vk": vk, "circuit": circuit,
             "public": a * b % R}
 
 
-def check_msm_launches(fl: dict, scan: str) -> None:
+def check_msm_launches(fl: dict, scan: str, multi_chunk: int) -> None:
     """One prove's MSM launches: one ``scan`` (madd_scan or fused_scan) per
     chunk (a chunk is one gather_rows in a split prove), no per-step
-    jac_madd, at most 3 tree launches a chunk, and fewer jac_add launches
-    than chunks (only the adds across an MSM's chunks remain)."""
+    jac_madd, at most 3 tree launches a chunk, no jac_add, and one
+    sum_sets for each of the ``multi_chunk`` MSMs of more than one chunk
+    (the adds across an MSM's chunks)."""
     chunks = fl[scan]
     if scan == "madd_scan" and fl["gather_rows"] != chunks:
         raise AssertionError(f"madd_scan launches {chunks} != gather_rows "
                              f"{fl['gather_rows']}")
     tree = sum(fl[k] for k in TREE_KERNELS)
-    if fl["jac_madd"] or not chunks or tree > 3 * chunks \
-            or fl["jac_add"] >= chunks:
+    if fl["jac_madd"] or fl["jac_add"] or not chunks \
+            or tree > 3 * chunks or fl["sum_sets"] != multi_chunk:
         raise AssertionError(f"MSM launches per prove {fl}: want one {scan} "
                              f"a chunk, no jac_madd, at most 3 tree launches "
-                             f"a chunk, fewer jac_add than chunks")
+                             f"a chunk, no jac_add, and {multi_chunk} "
+                             f"sum_sets, one an MSM of more than one chunk")
 
 
 # -- phase 4b ------------------------------------------------------------------
@@ -1194,6 +1301,7 @@ def fused_path(run: dict) -> list:
         turns.append({
             "label": label, "proof": proof,
             "prove_s": time.time() - t0, "launches": launches(),
+            "multi_chunk": multi_chunk_msms(),
             "peak_bytes": probe.overall_peak(), "probe": probe,
             "phases": {k: v for k, v in timers.TIMES.items()
                        if k.startswith("prover::")}})
@@ -1219,6 +1327,7 @@ def fused_path(run: dict) -> list:
         if r["label"] == "split":
             if fl != split or fl["fused_scan"]:
                 raise AssertionError(f"split prove launched {fl}")
+            check_msm_launches(fl, "madd_scan", r["multi_chunk"])
             continue
         if fl["fused_scan"] == 0 or any(fl[k] for k in SPLIT_ONLY):
             raise AssertionError(f"fused prove launched {fl}")
@@ -1226,7 +1335,7 @@ def fused_path(run: dict) -> list:
             raise AssertionError(f"fused_scan launches {fl['fused_scan']} "
                                  f"!= split gather_rows "
                                  f"{split['gather_rows']}")
-        check_msm_launches(fl, "fused_scan")
+        check_msm_launches(fl, "fused_scan", r["multi_chunk"])
         missing = [k for k in PROVE_KERNELS + FUSED_KERNELS
                    if k not in SPLIT_ONLY and fl[k] == 0]
         if missing:
@@ -1526,6 +1635,7 @@ def card_rank(mesh, run: dict, split_proof) -> dict:
         out["proves"].append({
             "label": label, "prove_s": prove_s,
             "peak_bytes": probe.overall_peak(), "launches": launches(),
+            "multi_chunk": multi_chunk_msms(),
             "collectives": copy.deepcopy(COLLECTIVES),
             "phase_peaks": {k: v["peak_bytes"]
                             for k, v in probe.phases.items()}})
@@ -1536,10 +1646,10 @@ def card_rank(mesh, run: dict, split_proof) -> dict:
 
 def check_sharded(card: dict) -> None:
     """Phase 6b's counts: every prove kernel launched in each steady
-    sharded prove, as many times as in the split proves beside it (one
-    rank adds no fold launch); 11 all_to_all, 9 all_gather (4 vectors, 5
-    window-sum gathers) and 1 broadcast a sharded proof, none a split
-    one."""
+    sharded prove, as many times as in the split proves beside it and by
+    phase 4's MSM rule (one rank adds no sum of the ranks' sums); 11
+    all_to_all, 9 all_gather (4 vectors, 5 window-sum gathers) and 1
+    broadcast a sharded proof, none a split one."""
     proves = card["proves"]
     split = [r for r in proves if r["label"] == "split"]
     for r in proves:
@@ -1559,6 +1669,7 @@ def check_sharded(card: dict) -> None:
             raise AssertionError(f"sharded prove launched {r['launches']}, "
                                  f"the split proves "
                                  f"{[s['launches'] for s in split]}")
+        check_msm_launches(r["launches"], "madd_scan", r["multi_chunk"])
 
 
 def main() -> int:
@@ -1723,6 +1834,8 @@ def main() -> int:
         else:
             k["launches"] = run["launches"][name]
             k["launches_per_prove"] = run["per_prove"][name]
+        if name in SETUP_KERNELS:
+            k["launches_per_setup"] = run["per_setup"][name]
         k["launches_per_sharded_prove"] = sharded[name]
         if name in UNCALLED_KERNELS:
             k["note"] = "no path of the reference calls this kernel"

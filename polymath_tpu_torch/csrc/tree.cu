@@ -17,7 +17,18 @@
 //                        (window, slice) in shared memory; the last block
 //                        of a window to finish sums the slices' partials.
 //
-// g1_add_kernel stays for its other callers.  All three kernels call
+// and one more kernel after the chunks, for the adds across them:
+//
+//   g1_sum_sets_kernel   k sets of window sums (k, 36, W) -> their sum
+//                        (36, W), one launch: the chunks' sums of one MSM
+//                        (ops/msm.py), or the ranks' (parallel/
+//                        msm_sharded.py).  It replaces the reference's
+//                        fori_loop of jac_add over the chunks
+//                        (polymath_tpu/ops/msm.py:325-336) and its scan
+//                        over the ranks (parallel/msm_sharded.py:25-34),
+//                        k - 1 launches of g1_add_kernel in a chain.
+//
+// g1_add_kernel stays for its other callers.  All four kernels call
 // jac_add of g1.cuh unchanged.  jac_add is complete (an identity operand
 // returns the other, P + P doubles, P + (-P) gives the identity), so the
 // sums are the same group elements as the composition's, but added in
@@ -40,8 +51,22 @@
 // then 7 levels in shared memory), and one block a window, which left 20
 // SMs working through 39 dependent adds a thread, is split into segments
 // joined by the carry pass.
-#include <cuda_runtime.h>
+//
+// The sum of sets is tiny (at most 40 x 20 adds at the bench workload,
+// 8,748 multiply-adds each: a bound under a microsecond), so only its
+// critical path counts: one block a window, the window's k <= 128 sets
+// staged in shared memory, then ceil(log2 k) levels of pairwise adds: 6
+// dependent adds for the 40 chunks of the d MSM, 2 for 4 chunks, where the
+// chain took 39 and 3 launches of one add each.  More sets than a block
+// holds take more launches of the same kernel (ops/cuda_tree.py).
+//
+// Built with a host compiler, the kernels are the bodies alone (no launch
+// code): tests/test_torch_tree.py runs them under a host emulation of a
+// block.
 #include "g1.cuh"
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
 
 namespace {
 
@@ -240,14 +265,45 @@ g1_fold_kernel(const uint32_t* ps, long n, const int64_t* cnt,
   if (t == 0) store_jac(out, windows, w, acc);
 }
 
+// parts (k, 36, windows): word i of window w of set s at
+// parts[s * set_stride + i * windows + w].  Block (j, w) sums the sets
+// [j * per, min(k, (j + 1) * per)) of window w (per <= kTreeThreads) into
+// out[j, ., w] of (gridDim.x, 36, windows): thread t loads set j * per + t,
+// then levels of pairwise halving over the n sets of the block, strides
+// h = 2^(ceil(log2 n) - 1) down to 1, a step adding only where both sums
+// hold a set; the block's sum ends in thread 0.
+__global__ void __launch_bounds__(kTreeThreads)
+g1_sum_sets_kernel(const uint32_t* parts, long set_stride, long k, long per,
+                   uint32_t* out, long windows) {
+  __shared__ uint32_t sm[36 * kTreeThreads];
+  const int t = threadIdx.x;
+  const long w = blockIdx.y, j = blockIdx.x;
+  const long n = k - j * per < per ? k - j * per : per;
+  Jac acc = t < n ? load_jac(parts + (j * per + t) * set_stride, windows, w)
+                  : jac_identity();
+  int h = 1;
+  while (h < n) h <<= 1;
+  for (h >>= 1; h > 0; h >>= 1) {
+    sm_store(sm, t, acc);
+    __syncthreads();
+    Jac b;
+    const bool live = t < h && t + h < n;
+    if (live) b = sm_load(sm, t + h);
+    __syncthreads();
+    if (live) acc = jac_add(acc, b);
+  }
+  if (t == 0) store_jac(out + j * 36 * windows, windows, w, acc);
+}
+
+}  // namespace
+
+#ifdef __CUDACC__
 template <class K>
-int blocks_per_sm(K kernel) {
+static int blocks_per_sm(K kernel) {
   int n = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTreeThreads, 0);
   return n;
 }
-
-}  // namespace
 
 // Blocks of the tree kernels one SM holds at once (registers and shared
 // memory), the least over the three.
@@ -291,3 +347,16 @@ extern "C" int pm_g1_fold(const void* ps, long n, const void* cnt,
         (uint32_t*)out, windows, per);
   return (int)cudaGetLastError();
 }
+
+extern "C" int pm_g1_sum_sets(const void* parts, long set_stride, long k,
+                              long per, void* out, long windows,
+                              void* stream) {
+  if (per < 1 || per > kTreeThreads) return (int)cudaErrorInvalidValue;
+  if (windows > 0 && k > 0)
+    g1_sum_sets_kernel<<<dim3((unsigned)((k + per - 1) / per),
+                              (unsigned)windows),
+                         kTreeThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)parts, set_stride, k, per, (uint32_t*)out, windows);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__

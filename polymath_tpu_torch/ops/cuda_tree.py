@@ -13,6 +13,11 @@ pallas_curve.py's ``_add_kernel``):
   cnt and r_of (W, n) int64 (``msm.threshold_prefixes``), offs from
   ``row_offsets`` or None (a single row) -> (36, W): per window the sum of
   ps + offs[r_of] over the thresholds with cnt > 0; one launch.
+* ``sum_sets(parts)``: parts (k, 36, W), k sets of window sums (an MSM's
+  chunks, or the ranks' sums) -> (36, W), their sum: one launch for up to
+  THREADS sets, a pairwise tree a window (more sets take a launch a
+  level, ``sum_levels``).  It replaces the chain of k - 1 ``jac_add``
+  launches (the reference's fori_loop, polymath_tpu/ops/msm.py:325-336).
 
 Segments and slices are sized so that every block of a launch is on the
 card at once (csrc/tree.cu says why).
@@ -38,7 +43,7 @@ from .curve import (
 from .field import FQ
 
 #: launches since the last reset (read by chip_smoke.py)
-LAUNCHES = {"row_offsets": 0, "window_fold": 0}
+LAUNCHES = {"row_offsets": 0, "window_fold": 0, "sum_sets": 0}
 
 #: csrc/tree.cu's block size; the most segments or slices a window has
 THREADS = 128
@@ -104,6 +109,25 @@ def window_fold_plain(ps: torch.Tensor, cnt: torch.Tensor,
     return tree_sum_jac(ps.transpose(1, 2), add)
 
 
+def sum_sets_plain(parts: torch.Tensor, add=add_plain) -> torch.Tensor:
+    """The sets added one by one in index order (the reference's
+    fori_loop over the chunks)."""
+    acc = parts[0]
+    for s in range(1, parts.shape[0]):
+        acc = add(acc, parts[s])
+    return acc
+
+
+def sum_levels(k: int) -> list:
+    """The launches of ``sum_sets`` over k sets: (sets in, sets a block)
+    for each, a launch leaving ceil(sets in / sets a block) sums."""
+    levels = [(k, min(k, THREADS))]
+    while levels[-1][0] > THREADS:
+        k = -(-k // THREADS)
+        levels.append((k, min(k, THREADS)))
+    return levels
+
+
 def _check(t: torch.Tensor, dtype, what: str) -> None:
     if t.dtype != dtype or t.device.type != "cuda":
         raise ValueError(f"{what}: expected {dtype} on the card, got "
@@ -142,15 +166,26 @@ def row_offsets(totals: torch.Tensor) -> torch.Tensor:
 
 
 def window_fold(ps: torch.Tensor, cnt: torch.Tensor, r_of: torch.Tensor,
-                offs: torch.Tensor | None) -> torch.Tensor:
-    """Offsets + mask + fold (module docstring) -> (36, W) window sums."""
+                offs: torch.Tensor | None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Offsets + mask + fold (module docstring) -> (36, W) window sums,
+    written into ``out`` when given (a contiguous (36, W) int32 slot, such
+    as one set of ``sum_sets``' operand)."""
     if ps.dim() != 3 or ps.shape[0] != JAC or cnt.shape != ps.shape[1:] \
             or r_of.shape != ps.shape[1:]:
         raise ValueError(f"window_fold: ps ({JAC}, W, n), cnt and r_of "
                          f"(W, n); got {tuple(ps.shape)}, "
                          f"{tuple(cnt.shape)}, {tuple(r_of.shape)}")
+    if out is not None and (out.shape != ps.shape[:2]
+                            or out.dtype != torch.int32
+                            or out.device != ps.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"window_fold: out must be a contiguous int32 "
+                         f"{tuple(ps.shape[:2])} on {ps.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
     if ps.device.type == "cpu":
-        return window_fold_plain(ps, cnt, r_of, offs)
+        res = window_fold_plain(ps, cnt, r_of, offs)
+        return res if out is None else out.copy_(res)
     _check(ps, torch.int32, "window_fold")
     _check(cnt, torch.int64, "window_fold")
     _check(r_of, torch.int64, "window_fold")
@@ -164,7 +199,8 @@ def window_fold(ps: torch.Tensor, cnt: torch.Tensor, r_of: torch.Tensor,
     _, windows, n = ps.shape
     dev = ps.device
     slices, size = _split(n, windows, 2, dev)
-    out = torch.empty((JAC, windows), dtype=torch.int32, device=dev)
+    if out is None:
+        out = torch.empty((JAC, windows), dtype=torch.int32, device=dev)
     part = torch.empty((JAC, windows, slices), dtype=torch.int32, device=dev)
     count = torch.zeros((windows,), dtype=torch.int32, device=dev)
     fn = _build.declare(_build.lib("tree").pm_g1_fold, 13)
@@ -176,3 +212,30 @@ def window_fold(ps: torch.Tensor, cnt: torch.Tensor, r_of: torch.Tensor,
                     _build.stream(out)), "window_fold")
     LAUNCHES["window_fold"] += 1
     return out
+
+
+def sum_sets(parts: torch.Tensor) -> torch.Tensor:
+    """(k, 36, W) sets of Jacobian window sums -> (36, W), their sum
+    (module docstring); the sets may lie ``parts.stride(0)`` words apart."""
+    if parts.dim() != 3 or parts.shape[1] != JAC or parts.shape[0] < 1:
+        raise ValueError(f"sum_sets: parts must be (k >= 1, {JAC}, W), got "
+                         f"{tuple(parts.shape)}")
+    if parts.dtype != torch.int32:
+        raise ValueError(f"sum_sets: expected int32 words, got "
+                         f"{parts.dtype}")
+    if parts.device.type == "cpu":
+        return sum_sets_plain(parts)
+    _check(parts, torch.int32, "sum_sets")
+    windows = parts.shape[2]
+    if parts.stride(2) != 1 or parts.stride(1) != windows:
+        parts = parts.contiguous()
+    fn = _build.declare(_build.lib("tree").pm_g1_sum_sets, 7)
+    for k, per in sum_levels(parts.shape[0]):
+        out = torch.empty((-(-k // per), JAC, windows), dtype=torch.int32,
+                          device=parts.device)
+        _build.check(fn(parts.data_ptr(), parts.stride(0), k, per,
+                        out.data_ptr(), windows, _build.stream(out)),
+                     "sum_sets")
+        LAUNCHES["sum_sets"] += 1
+        parts = out
+    return parts[0]

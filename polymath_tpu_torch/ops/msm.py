@@ -15,7 +15,12 @@ window w of c-bit digits:
      a carry pass, two launches);
   5. sum_i d_i P_i = sum_{t=1}^{2^c} PS_{cnt(d >= t)}: the global prefix is
      formed only at the 2^c threshold positions (each adds its row's
-     offset) and the thresholds are summed: one launch of ``window_fold``.
+     offset) and the thresholds are summed: one launch of ``window_fold``,
+     which writes the chunk's window sums into its slot of one (chunks,
+     36, W) buffer;
+  6. after the last chunk, one ``sum_sets`` launch (ops/cuda_tree.py) adds
+     the chunks' window sums, a pairwise tree a window (none for a single
+     chunk).
 
 The fused configuration (``fused=True``, or ``POLYMATH_MSM_FUSED`` set to
 ``1``/``on``/``true`` when ``fused`` is None, as the reference's
@@ -27,9 +32,8 @@ reference's: the split scan.
 
 The work per chunk is the same whatever the digit distribution: a digit
 repeated across the whole chunk (BenchCircuit's c_w vector) costs what
-random digits cost.  Window sums add across chunks on the card; the final
-Horner over windows and any peeled tail run on the host through the
-native ``g1_msm``.
+random digits cost.  The final Horner over windows and any peeled tail
+run on the host through the native ``g1_msm``.
 
 Bases are the port's packed form: an (N, 24) int32 row table of affine
 Montgomery words (x words then y words; (0, 0) is the identity), so each
@@ -68,10 +72,9 @@ import numpy as np
 import torch
 
 from ..hostmath import bls12_381 as bls
-from .cuda_curve import jac_add
 from .cuda_gather import gather_rows
 from .cuda_scan import fused_scan_msm, madd_scan
-from .cuda_tree import row_offsets as _row_offsets, window_fold
+from .cuda_tree import row_offsets as _row_offsets, sum_sets, window_fold
 from .curve import AFF, FW, JAC, jac_to_host
 from .field import fr_from_mont, fr_window_digits
 from .limbs import FQ_SPEC, words_to_ints
@@ -84,6 +87,10 @@ MAX_C = 16
 # gathered leaves 96, indices 8; W x chunk lane steps): 21 GB at 2^22 and
 # c = 13, and past the card's 80 GB beside the bench key at 2^23 and c = 8.
 MAX_CHUNK = 1 << 22
+
+#: MSMs since the last reset of more than one chunk, whose window sums one
+#: ``sum_sets`` launch adds (read by chip_smoke.py)
+RUNS = {"multi_chunk": 0}
 
 
 def _env_int(name: str):
@@ -251,17 +258,19 @@ def row_offsets(local: torch.Tensor) -> torch.Tensor | None:
 
 
 def msm_chunk(table: torch.Tensor, scalars: torch.Tensor, chunk: int,
-              c: int, windows: int, fast: bool, fused: bool = False):
+              c: int, windows: int, fast: bool, fused: bool = False,
+              out: torch.Tensor | None = None):
     """One chunk: table (t, 24) affine rows (t <= chunk), scalars (8, chunk)
     canonical words (zero past t) -> ((36, windows) window sums, err).
-    ``fused`` runs steps 2-3 as one fused_scan launch."""
+    ``fused`` runs steps 2-3 as one fused_scan launch; the window sums go
+    into ``out`` when given (``window_fold``'s slot)."""
     idx, d_sorted = bucket_order(scalars, table.shape[0], c, windows,
                                  scan_seq(chunk))
     local, err = scan_local(table, idx, fast, fused)
     ps, cnt, r_of = threshold_prefixes(local, d_sorted, c)
     offs = row_offsets(local)
     del local
-    wsum = window_fold(ps, cnt, r_of, offs)
+    wsum = window_fold(ps, cnt, r_of, offs, out)
     return wsum, (None if err is None else err.any())
 
 
@@ -360,7 +369,8 @@ def msm_device(bases: torch.Tensor, scalars: torch.Tensor,
     if fused is None:
         fused = fused_mode()
     dev = scalars.device
-    acc = None
+    parts = torch.empty((n_chunks, JAC, windows), dtype=torch.int32,
+                        device=dev)
     err = None
     for k in range(n_chunks):
         lo, hi = k * chunk, min(m, (k + 1) * chunk)
@@ -369,11 +379,13 @@ def msm_device(bases: torch.Tensor, scalars: torch.Tensor,
             sc_k = torch.cat([sc_k, torch.zeros(
                 (sc.shape[0], chunk - (hi - lo)), dtype=sc.dtype,
                 device=dev)], dim=1)
-        part, e = msm_chunk(bases[lo:hi], sc_k.contiguous(), chunk, c,
-                            windows, fast, fused)
-        acc = part if acc is None else jac_add(acc, part)
+        _, e = msm_chunk(bases[lo:hi], sc_k.contiguous(), chunk, c,
+                         windows, fast, fused, out=parts[k])
         if fast:
             err = e if err is None else (err | e)
-    pending = MsmPending(acc, err, c, windows, tail)
+    if n_chunks > 1:
+        RUNS["multi_chunk"] += 1
+    wsums = sum_sets(parts) if n_chunks > 1 else parts[0]
+    pending = MsmPending(wsums, err, c, windows, tail)
     return pending if defer else pending.result()
 

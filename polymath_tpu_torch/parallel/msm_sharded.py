@@ -8,8 +8,9 @@ part (as ``msm_device`` counts them), rank r takes the block
 ``msm_device`` over it, deferred.  Then one all_gather of a few
 kilobytes a rank brings every rank's parts to every rank, on the card:
 
-* the (36, windows) Jacobian window sums, folded in rank order with
-  ``jac_add`` (B5; a psum cannot add group elements), d - 1 launches;
+* the (36, windows) Jacobian window sums, added with the group law (a
+  psum cannot add group elements) by one ``sum_sets`` launch over the
+  (d, 36, windows) gathered sums (ops/cuda_tree.py; none for d = 1);
 * the fast-mode collision flag, so every rank sees every rank's flag and
   all raise together (the prover then reruns the MSM safe on every rank;
   a rank that reran alone would leave the others waiting in the gather);
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.cuda_curve import jac_add
+from ..ops.cuda_tree import sum_sets
 from ..ops.curve import AFF, JAC, jac_identity_words
 from ..ops.limbs import FR_SPEC
 from ..ops.msm import (MsmPending, TAIL_MAX, choose_chunk, msm_device,
@@ -80,9 +81,7 @@ def msm_sharded(bases: torch.Tensor, scalars: torch.Tensor, mesh,
     got = mesh.all_gather(_payload(part, windows, dev))   # (d, K)
     nw = JAC * windows
     sums = got[:, :nw].reshape(d, JAC, windows)
-    wsums = sums[0]
-    for s in range(1, d):
-        wsums = jac_add(wsums, sums[s])
+    wsums = sum_sets(sums) if d > 1 else sums[0]
     err = (got[:, nw] != 0).any() if fast else None
     rows = got[:, nw + 1:nw + 1 + TAIL_MAX * AFF].reshape(d * TAIL_MAX, AFF)
     tail_sc = got[:, nw + 1 + TAIL_MAX * AFF:].reshape(d, W, TAIL_MAX)

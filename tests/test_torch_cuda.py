@@ -40,7 +40,7 @@ def card():
 def test_kernels_match_plain_versions(card):
     errs = chip_smoke.check_kernels(card)
     assert set(errs) == set(chip_smoke.ALL_KERNELS)
-    assert len(errs) == 15
+    assert len(errs) == 16
     assert not any(errs.values())
 
 
@@ -109,7 +109,21 @@ def test_tree_kernels_match_plain_versions(card, windows, rows, n):
     # more than 2 rows a thread of one block: a carry pass joins segments
     assert cuda_tree.LAUNCHES == {
         "row_offsets": 0 if rows == 1 else 1 + int(rows > 2 * 128),
-        "window_fold": 1}
+        "window_fold": 1, "sum_sets": 0}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 40, 130])
+def test_sum_sets_matches_plain_version(card, k):
+    """chip_smoke.sum_sets_case's sets at the prover's 20 windows (the
+    identity, P + P, P + (-P) and a repeated point planted), as affine
+    points against the serial sum; 130 sets take two launches."""
+    from polymath_tpu_torch.ops import cuda_tree
+    parts, _ = chip_smoke.sum_sets_inputs(card, k, 20, 300 + k)
+    chip_smoke.reset_launches()
+    got = cuda_tree.sum_sets(parts)
+    assert cuda_tree.LAUNCHES["sum_sets"] == len(cuda_tree.sum_levels(k))
+    chip_smoke.compare_points("sum_sets", got,
+                              cuda_tree.sum_sets_plain(parts))
 
 
 def test_msm_fused_equals_split_on_the_card(card):
@@ -135,13 +149,15 @@ def test_msm_fused_equals_split_on_the_card(card):
     assert cuda_scan.LAUNCHES == {"madd_scan": 1, "fused_scan": 0}
     assert cuda_gather.LAUNCHES["gather_rows"] == 1
     assert cuda_curve.LAUNCHES["jac_madd"] == 0
-    assert cuda_tree.LAUNCHES == {"row_offsets": 1, "window_fold": 1}
+    assert cuda_tree.LAUNCHES == {"row_offsets": 1, "window_fold": 1,
+                                  "sum_sets": 0}
     chip_smoke.reset_launches()
     fused = M.msm_device(rows, sc, chunk=1 << 12, fused=True)
     assert cuda_scan.LAUNCHES == {"madd_scan": 0, "fused_scan": 1}
     assert cuda_gather.LAUNCHES["gather_rows"] == 0
     assert cuda_curve.LAUNCHES["jac_madd"] == 0
-    assert cuda_tree.LAUNCHES == {"row_offsets": 1, "window_fold": 1}
+    assert cuda_tree.LAUNCHES == {"row_offsets": 1, "window_fold": 1,
+                                  "sum_sets": 0}
     assert fused == split == g1_msm(pts, vals)
 
 

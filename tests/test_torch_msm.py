@@ -144,3 +144,47 @@ def test_deferred_msm_parts_before_result(points):
     tail = M.MsmPending(pend.wsums, None, c, windows, pend.tail).result()
     assert body == g1_msm(pts[:2 * chunk], sc[:2 * chunk])
     assert tail == pend.result() == g1_msm(pts, sc)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+def test_msm_of_five_chunks_sums_them_in_one_call(monkeypatch, tail):
+    """Five chunks of 16 (the last ragged with POLYMATH_MSM_TAIL=0, or
+    whole with a peeled tail of 7 on the host): the host MSM's point, the
+    chunks' window sums added by one ``sum_sets`` call over a (5, 36, W)
+    buffer that ``window_fold`` wrote, and no ``jac_add``."""
+    from polymath_tpu_torch.ops import cuda_curve, cuda_tree
+    n = 5 * 16 + 7 if tail else 4 * 16 + 9
+    pts = _distinct_points(n, 77)
+    pts[5] = None
+    rng = random.Random(n)
+    sc = [rng.randrange(R) for _ in pts]
+    calls = {"sum_sets": [], "jac_add": 0, "window_fold": 0}
+
+    def sum_sets(parts):
+        calls["sum_sets"].append(tuple(parts.shape))
+        return cuda_tree.sum_sets(parts)
+
+    def window_fold(*args):
+        calls["window_fold"] += 1
+        return cuda_tree.window_fold(*args)
+
+    def jac_add(p, q):
+        calls["jac_add"] += 1
+        return cuda_curve.jac_add(p, q)
+
+    monkeypatch.setattr(M, "sum_sets", sum_sets)
+    monkeypatch.setattr(M, "window_fold", window_fold)
+    monkeypatch.setattr(cuda_curve, "jac_add", jac_add)
+    monkeypatch.setenv("POLYMATH_MSM_TAIL", "1" if tail else "0")
+    runs = M.RUNS["multi_chunk"]
+    pend = M.msm_device(_rows(pts), _scalars(sc), chunk=16, defer=True)
+    assert (pend.tail is not None) == tail
+    assert pend.result() == g1_msm(pts, sc)
+    assert calls == {"sum_sets": [(5, 36, M.window_params(16)[1])],
+                     "jac_add": 0, "window_fold": 5}
+    assert M.RUNS["multi_chunk"] == runs + 1
+    # one chunk: its window sums as the fold left them, no sum_sets
+    assert M.msm_device(_rows(pts[:16]), _scalars(sc[:16]), chunk=16) == \
+        g1_msm(pts[:16], sc[:16])
+    assert len(calls["sum_sets"]) == 1 and calls["window_fold"] == 6
+    assert M.RUNS["multi_chunk"] == runs + 1

@@ -1,6 +1,6 @@
 """The MSM's one-launch bucket scan and group-law tree on the CPU, through
 the plain versions of polymath_tpu_torch.ops.cuda_scan.madd_scan and
-ops.cuda_tree (row_offsets, window_fold).
+ops.cuda_tree (row_offsets, window_fold, sum_sets).
 
 The tree's inputs are points k G with small seeded k (numpy;
 chip_smoke.tree_case, which the card's tests use too), so the hostmath
@@ -13,16 +13,27 @@ and against hostmath at shapes that are not powers of two; the scan word
 for word against the per-step jac_madd loop it replaces and against the
 fused scan (tests/test_torch_scan.py holds both against the reference's
 eager madd scan).
+
+The sum of sets (chip_smoke.sum_sets_case: an identity set, P + P and
+P + (-P) planted where the serial sum and the kernel's first level meet
+them, a window of one repeated point) is held against the hostmath sum,
+and the kernel body of csrc/tree.cu's g1_sum_sets_kernel, built with g++
+and run under a host emulation of a CUDA block (as tests/test_torch_poly.py
+runs poly.cu's), against the plain version, as affine points.
 """
+
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import host_point, jac_words, tree_case
+from chip_smoke import (host_point, jac_words, sum_sets_case,
+                        sum_sets_inputs, tree_case)
 from polymath_tpu.ops import curve_jax as CJ
-from polymath_tpu_torch.ops import cuda_curve, cuda_scan, cuda_tree
+from polymath_tpu_torch.ops import _build, cuda_curve, cuda_scan, cuda_tree
 from polymath_tpu_torch.ops import curve as C
 from polymath_tpu_torch.ops import msm as M
 
@@ -67,7 +78,8 @@ def test_tree_matches_hostmath(windows, rows, n):
                                  torch.from_numpy(r_of), got_offs)
     assert wsum.shape == (C.JAC, windows)
     assert _host(wsum) == _want_sums(ps, cnt, r_of, offs)
-    assert cuda_tree.LAUNCHES == {"row_offsets": 0, "window_fold": 0}
+    assert cuda_tree.LAUNCHES == {"row_offsets": 0, "window_fold": 0,
+                                  "sum_sets": 0}
 
 
 def _jax(words):
@@ -140,6 +152,160 @@ def test_tree_wrappers_reject_bad_shapes():
         cuda_tree.window_fold(ps, cnt[:1], cnt, None)
     assert cuda_tree.jac_equal(cuda_tree.window_fold(ps, cnt, cnt, None),
                                C.jac_identity_words((2,))).all()
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 40])
+def test_sum_sets_matches_hostmath(k):
+    """The sets' sum per window is (sum of the ks) G, with the identity,
+    P + P, P + (-P) and a repeated point planted; a strided operand (sets
+    further apart than 36 W words, as the ranks' gathered sums lie) gives
+    the same."""
+    parts, ks = sum_sets_inputs("cpu", k, 5, 100 + k)
+    got = cuda_tree.sum_sets(parts)
+    assert got.shape == (C.JAC, 5)
+    assert _host(got) == _points(ks.sum(axis=0))
+    wide = torch.cat([parts.reshape(k, -1),
+                      torch.zeros((k, 7), dtype=torch.int32)], dim=1)
+    strided = wide.as_strided((k, C.JAC, 5), (C.JAC * 5 + 7, 5, 1))
+    assert torch.equal(cuda_tree.sum_sets(strided), got)
+    assert cuda_tree.LAUNCHES["sum_sets"] == 0              # no kernel here
+
+
+def test_sum_sets_levels_and_refusals():
+    """A launch takes at most THREADS sets; more take a launch a level.
+    Bad shapes, no set, and words other than int32 are refused."""
+    assert cuda_tree.sum_levels(1) == [(1, 1)]
+    assert cuda_tree.sum_levels(40) == [(40, 40)]
+    assert cuda_tree.sum_levels(128) == [(128, 128)]
+    assert cuda_tree.sum_levels(129) == [(129, 128), (2, 2)]
+    assert cuda_tree.sum_levels(20_000) == [(20_000, 128), (157, 128),
+                                            (2, 2)]
+    parts = C.jac_identity_words((3, 4)).permute(1, 0, 2).contiguous()
+    for bad in (parts[0], parts[:, :24], parts[:0]):
+        with pytest.raises(ValueError, match=r"\(k >= 1, 36, W\)"):
+            cuda_tree.sum_sets(bad)
+    with pytest.raises(ValueError, match="int32"):
+        cuda_tree.sum_sets(parts.to(torch.int64))
+
+
+# -- csrc/tree.cu's sum of sets under a host emulation of a CUDA block ------
+
+TREE_HARNESS = r"""
+#include <atomic>
+#include <barrier>
+#include <cstdio>
+#include <cstdlib>
+#include <thread>
+#include <vector>
+
+struct PmDim {
+  unsigned x, y;
+};
+thread_local PmDim threadIdx, blockIdx, gridDim;
+static std::barrier<>* pm_block;
+#define __global__
+#define __shared__ static
+#define __launch_bounds__(...)
+inline void __syncthreads() { pm_block->arrive_and_wait(); }
+template <class T>
+inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence() {}
+inline int atomicAdd(int* p, int v) {
+  return std::atomic_ref<int>(*p).fetch_add(v);
+}
+#include "tree.cu"
+
+// argv: k, per, windows, set stride, input file, output file.  Input: the
+// k sets, set s at word s * stride; output: the ceil(k / per) block sums
+// (groups, 36, windows), one block (j, w) after another.
+int main(int argc, char** argv) {
+  const long k = atol(argv[1]), per = atol(argv[2]);
+  const long windows = atol(argv[3]), stride = atol(argv[4]);
+  const long groups = (k + per - 1) / per;
+  std::vector<uint32_t> parts(k * stride);
+  FILE* in = fopen(argv[5], "rb");
+  size_t got = fread(parts.data(), 4, parts.size(), in);
+  fclose(in);
+  if (got != parts.size()) return 2;
+  std::vector<uint32_t> out(groups * 36 * windows);
+  for (long w = 0; w < windows; ++w)
+    for (long j = 0; j < groups; ++j) {
+      std::barrier<> bar(kTreeThreads);
+      pm_block = &bar;
+      std::vector<std::thread> threads;
+      for (int t = 0; t < kTreeThreads; ++t)
+        threads.emplace_back([&, t, j, w] {
+          threadIdx.x = t;
+          blockIdx.x = (unsigned)j;
+          blockIdx.y = (unsigned)w;
+          g1_sum_sets_kernel(parts.data(), stride, k, per, out.data(),
+                             windows);
+        });
+      for (auto& th : threads) th.join();
+    }
+  FILE* o = fopen(argv[6], "wb");
+  fwrite(out.data(), 4, out.size(), o);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def tree_harness(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build tree.cu's kernel bodies for the host")
+    d = tmp_path_factory.mktemp("tree")
+    (d / "harness.cpp").write_text(TREE_HARNESS)
+    exe = d / "harness"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-I",
+                    _build.CSRC, "-o", str(exe), str(d / "harness.cpp")],
+                   check=True)
+    return exe, d
+
+
+def run_sum_sets_body(harness, parts, per, pad=0):
+    """One launch of g1_sum_sets_kernel over parts (k, 36, W) with blocks
+    of ``per`` sets, the sets ``pad`` words further apart than 36 W ->
+    (ceil(k / per), 36, W)."""
+    exe, d = harness
+    k, _, windows = parts.shape
+    stride = C.JAC * windows + pad
+    flat = torch.cat([parts.reshape(k, -1),
+                      torch.zeros((k, pad), dtype=torch.int32)], dim=1)
+    src, dst = d / "in.bin", d / "out.bin"
+    src.write_bytes(flat.numpy().tobytes())
+    subprocess.run([str(exe), str(k), str(per), str(windows), str(stride),
+                    str(src), str(dst)], check=True)
+    groups = -(-k // per)
+    return torch.from_numpy(np.fromfile(dst, dtype=np.int32).reshape(
+        groups, C.JAC, windows))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 40, 130])
+def test_sum_sets_kernel_body_matches_plain_version(tree_harness, k):
+    """Each launch of ``sum_levels(k)`` (130 sets: two blocks of 128 and 2,
+    then their two sums), as affine points against the serial sum of each
+    block's sets, and the last against the hostmath sum."""
+    parts, ks = sum_sets_inputs("cpu", k, 4, 200 + k)
+    for i, (n, per) in enumerate(cuda_tree.sum_levels(k)):
+        got = run_sum_sets_body(tree_harness, parts, per, pad=5 * i)
+        for j in range(got.shape[0]):
+            want = cuda_tree.sum_sets_plain(parts[j * per:(j + 1) * per])
+            assert cuda_tree.jac_equal(got[j], want).all(), (n, per, j)
+        parts = got
+    assert parts.shape[0] == 1
+    assert _host(parts[0]) == _points(ks.sum(axis=0))
+
+
+def test_sum_sets_case_plants():
+    """The planted windows of chip_smoke.sum_sets_case at k = 40 (the
+    kernel's first level pairs set t with set t + 32)."""
+    ks = sum_sets_case(40, 20, 1)
+    assert ks[0, 0] == 0
+    assert ks[0, 1] == ks[1, 1] == ks[32, 1] != 0
+    assert ks[0, 2] == -ks[1, 2] == -ks[32, 2] != 0
+    assert (ks[:, 3] == ks[0, 3]).all()
 
 
 def _scan_leaves(seq, windows, rows, seed):
