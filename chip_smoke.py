@@ -40,6 +40,17 @@ Phases, each printing what it found:
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
    setup and prove on the card, for all three transcripts, against
    tests/fixtures/golden_dummy.json;
+3b. golden multi-chunk MSMs: reduced MiMC (5 rounds) from the recipe of
+   tests/fixtures/golden_mimc.json through the port's setup on the card,
+   whose VK must equal the fixture's, then 18 proves on the card: each
+   transcript at POLYMATH_MSM_CHUNK=8 with the host tail on and off and at
+   POLYMATH_MSM_CHUNK=2 with it off, each with the split and the fused
+   scan.  Every proof must equal the JAX package's host-prover bytes in
+   the fixture and verify; each prove must run its 5 MSMs in more than
+   one chunk (ops/msm.py:RUNS), the fused ones through fused_scan and no
+   madd_scan, and at chunks of 2 launch sum_sets more than 5 times (the
+   d MSM's 171 chunk sums take two levels).  One line a transcript and
+   setting, with the split and fused proves' seconds;
 4. main path: BenchCircuit at N constraints (default 2^20 - 100, as
    bench.py), Merlin, seed 0: setup, a warm prove, a second prove, a
    verify of each and a rejected wrong public input, with per-phase times,
@@ -58,7 +69,10 @@ Phases, each printing what it found:
    must launch fused_scan (B7) once per MSM chunk, no madd_scan, jac_madd
    or gather_rows, at most 3 tree launches a chunk, and the sums of sets
    as in phase 4; the quotient scan as in phase 4.  Per-phase times, peak device memory (also by phase)
-   and launches of each;
+   and launches of each.  Then one split prove each under the Keccak256
+   and Blake3 transcripts with the same key from Rng(7): each must verify
+   under its transcript and reject a wrong public input; their seconds
+   are printed beside the Merlin split proves';
 4c. the key store and the bench entry, with the phase-4 key:
    ``protocol/keys.save_dir`` into a fresh directory under build/ (its
    seconds and GiB on disk); ``python3 -m polymath_tpu_torch.bench
@@ -1079,6 +1093,104 @@ def golden(dev) -> None:
               flush=True)
 
 
+#: phase 3b's MSM settings, (POLYMATH_MSM_CHUNK, POLYMATH_MSM_TAIL): the
+#: host tail on (6 of the d MSM's 342 points to the host), off (the tail
+#: one more chunk on the card), and chunks of 2 (the d MSM's 171 chunk
+#: sums take two sum_sets levels)
+MULTI_CHUNK_SETTINGS = (("8", "1"), ("8", "0"), ("2", "0"))
+#: the golden MiMC proof's MSMs (a, r, c_w, c_h, d): each takes more than
+#: one chunk at every setting of phase 3b
+GOLDEN_MSMS = 5
+
+
+def golden_multi_chunk(dev) -> dict:
+    """Phase 3b: the reduced MiMC recipe of tests/fixtures/golden_mimc.json
+    through the port's setup and prove on ``dev``.  The VK must equal the
+    fixture's, and every transcript's proof, at each of
+    MULTI_CHUNK_SETTINGS with the split and with the fused scan, must
+    equal the JAX host prover's bytes and verify; each prove runs all
+    GOLDEN_MSMS MSMs in more than one chunk, the fused ones through
+    fused_scan only, and at chunks of 2 sum_sets launches more than once
+    for some MSM.  Returns the setup's and each prove's seconds."""
+    import copy
+    import random
+    from polymath_tpu_torch.circuits import MiMCDemo
+    from polymath_tpu_torch.circuits.mimc import mimc_hash
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.protocol import Polymath, Rng
+    from polymath_tpu_torch.transcript import ALL_TRANSCRIPTS
+    from polymath_tpu_torch.utils.config import device_sync, environ
+    with open(os.path.join(HERE, "tests", "fixtures",
+                           "golden_mimc.json")) as fh:
+        fixture = json.load(fh)
+    recipe = fixture["recipe"]
+    crng = random.Random(recipe["constants_seed"])
+    consts = [crng.randrange(R) for _ in range(recipe["rounds"])]
+    rng = Rng(recipe["rng_seed"])
+    xl, xr = rng.randrange(R), rng.randrange(R)
+    image = int(fixture["image"], 16)
+    if mimc_hash(xl, xr, consts) != image:
+        raise AssertionError("the recipe's MiMC image differs from the "
+                             "fixture's")
+    t0 = time.time()
+    pk, vk = Polymath(device=dev).setup(MiMCDemo(constants=consts), rng)
+    device_sync()
+    out = {"setup_s": time.time() - t0, "proves": []}
+    if vk.to_bytes().hex() != fixture["vk"]:
+        raise AssertionError("golden MiMC: VerifyingKey bytes differ")
+    print(f"  setup {out['setup_s']:.3f} s; VK bytes equal the fixture",
+          flush=True)
+    for tr in ALL_TRANSCRIPTS:
+        pm = Polymath(transcript=tr, device=dev)
+        for chunk, tail in MULTI_CHUNK_SETTINGS:
+            setting = (f"chunk {chunk}, tail "
+                       f"{'on' if tail == '1' else 'off'}")
+            seconds = {}
+            for scan in ("split", "fused"):
+                label = f"{tr.name}, {setting}, {scan}"
+                before, multi0 = launches(), multi_chunk_msms()
+                t0 = time.time()
+                with environ(POLYMATH_MSM_CHUNK=chunk,
+                             POLYMATH_MSM_TAIL=tail,
+                             POLYMATH_MSM_FUSED="1" if scan == "fused"
+                             else "0"):
+                    proof = pm.prove(pk, MiMCDemo(xl, xr, consts),
+                                     copy.deepcopy(rng))
+                    device_sync()
+                seconds[scan] = time.time() - t0
+                after = launches()
+                fl = {k: after[k] - before[k] for k in after}
+                multi = multi_chunk_msms() - multi0
+                if proof.to_bytes().hex() != fixture["proofs"][tr.name]:
+                    raise AssertionError(f"{label}: proof bytes differ from "
+                                         f"the JAX package's")
+                if not pm.verify(vk, [image], proof):
+                    raise AssertionError(f"{label}: proof rejected")
+                if multi != GOLDEN_MSMS:
+                    raise AssertionError(f"{label}: {multi} MSMs of more "
+                                         f"than one chunk, want "
+                                         f"{GOLDEN_MSMS}")
+                ran, idle = (("fused_scan", "madd_scan") if scan == "fused"
+                             else ("madd_scan", "fused_scan"))
+                if fl[ran] == 0 or fl[idle]:
+                    raise AssertionError(f"{label}: {ran} launched "
+                                         f"{fl[ran]}, {idle} {fl[idle]}")
+                if chunk == "2" and fl["sum_sets"] <= GOLDEN_MSMS:
+                    raise AssertionError(f"{label}: sum_sets launched "
+                                         f"{fl['sum_sets']} times, want "
+                                         f"more than {GOLDEN_MSMS}")
+                out["proves"].append({"label": label,
+                                      "prove_s": seconds[scan],
+                                      "sum_sets": fl["sum_sets"]})
+            print(f"  {tr.name}, {setting}: proof bytes equal the JAX "
+                  f"package's, verified, {GOLDEN_MSMS} MSMs of more than "
+                  f"one chunk; split {seconds['split']:.3f} s, fused "
+                  f"{seconds['fused']:.3f} s; sum_sets launches "
+                  f"{out['proves'][-2]['sum_sets']} / "
+                  f"{out['proves'][-1]['sum_sets']}", flush=True)
+    return out
+
+
 # -- phase 4 -------------------------------------------------------------------
 
 def _counted_modules(tools: bool = False):
@@ -1344,6 +1456,33 @@ def fused_path(run: dict) -> list:
     print("  proofs byte-equal, all verify, wrong public input rejected",
           flush=True)
     return turns
+
+
+def other_transcripts(run: dict) -> dict:
+    """Phase 4b's Keccak256 and Blake3 proves: one split prove each with
+    the phase-4 key from a fresh Rng(7), which must verify under its
+    transcript and reject a wrong public input.  Returns each one's
+    seconds."""
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.protocol import Polymath, Rng
+    from polymath_tpu_torch.transcript import (
+        Blake3Transcript, Keccak256Transcript,
+    )
+    from polymath_tpu_torch.utils.config import device_sync, environ
+    seconds = {}
+    for tr in (Keccak256Transcript, Blake3Transcript):
+        pm = Polymath(transcript=tr, device=run["pm"].device)
+        t0 = time.time()
+        with environ(POLYMATH_MSM_FUSED="0"):
+            proof = pm.prove(run["pk"], run["circuit"](), Rng(7))
+            device_sync()
+        seconds[tr.name] = time.time() - t0
+        if not pm.verify(run["vk"], [run["public"]], proof):
+            raise AssertionError(f"{tr.name} bench proof rejected")
+        if pm.verify(run["vk"], [(run["public"] + 1) % R], proof):
+            raise AssertionError(f"{tr.name}: a wrong public input was "
+                                 f"accepted")
+    return seconds
 
 
 # -- phase 4c ------------------------------------------------------------------
@@ -1727,6 +1866,15 @@ def main() -> int:
     # 3. golden bytes
     print("[3] golden bytes on the card:", flush=True)
     golden(dev)
+    print("[3b] golden multi-chunk MSMs: reduced MiMC against "
+          "tests/fixtures/golden_mimc.json, each transcript at chunk 8 "
+          "(tail on, off) and 2, split and fused", flush=True)
+    t0 = time.time()
+    gm = golden_multi_chunk(dev)
+    print(f"[3b] VK and all {len(gm['proves'])} proofs equal the JAX "
+          f"package's bytes; setup {gm['setup_s']:.3f} s, proves "
+          f"{sum(r['prove_s'] for r in gm['proves']):.3f} s; phase 3b took "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     # 4. main path
     print(f"[4] main path: BenchCircuit, {args.constraints} constraints, "
@@ -1746,6 +1894,12 @@ def main() -> int:
     print(f"[4b] fused prove {fused['prove_s']:.2f} s, peak "
           f"{fused['peak_bytes'] / 2**30:.2f} GiB, fused_scan launches "
           f"{fused['launches']['fused_scan']}", flush=True)
+    tr_s = other_transcripts(run)
+    print(f"[4b] split proves from Rng(7) by transcript: merlin "
+          f"{turns[0]['prove_s']:.3f} / {turns[3]['prove_s']:.3f} s, "
+          f"keccak256 {tr_s['keccak256']:.3f} s, blake3 "
+          f"{tr_s['blake3']:.3f} s; each verified under its transcript, "
+          f"a wrong public input rejected", flush=True)
 
     # 4c. the key store and the bench entry
     print("[4c] key store and bench entry: save_dir of the phase-4 key, "

@@ -1,5 +1,6 @@
-"""Measurement entry points of the port (counterparts of the reference's
-measurement scripts).  Each runs as
+"""The port's tools: measurement entry points (counterparts of the
+reference's measurement scripts) and the Rust-vector importer.  Each
+measurement entry point runs as
 
     python3 -m polymath_tpu_torch.tools.<name> [--device {cuda,cpu}] ...
 
@@ -15,6 +16,11 @@ and has ``main(argv=None) -> dict``, which returns what it prints:
 * ``productprobe``: what one Montgomery product costs (``to_affine`` at
   the scans' lane count and at a full card, and the SASS instructions of
   one inlined product).
+
+``import_rust_vectors FILE`` (the reference's
+tools/import_rust_vectors.py) is host only and takes no ``--device``: it
+verifies the Rust reference crate's proofs under the port's verifier and
+installs them as a test fixture.
 
 ``--device cuda`` (the default) raises when no card is visible; ``--device
 cpu`` runs the kernels' plain versions, and every time it reports is then

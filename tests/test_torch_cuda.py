@@ -10,7 +10,8 @@ one-launch madd scan and the tree kernels, at the shapes of the CPU tests
 over their levels against the recurrence they replaced; the MSM in its
 fused-scan configuration against the split one, each through its own
 launches; the golden DummyCircuit bytes for all three transcripts proved
-on the card; a key written by ``keys.save_dir`` and read back by
+on the card, and the golden reduced-MiMC bytes with every MSM in more
+than one chunk (chip_smoke.py phase 3b); a key written by ``keys.save_dir`` and read back by
 ``keys.load_dir`` on the card proving to the bytes of the key it came
 from; the sharded NTT and MSM (parallel/) on one NCCL rank against the
 single-device results, and a kernel operand off the current card
@@ -163,6 +164,16 @@ def test_msm_fused_equals_split_on_the_card(card):
 
 def test_golden_dummy_bytes_on_the_card(card):
     chip_smoke.golden(card)
+
+
+def test_golden_multi_chunk_proofs_on_the_card(card):
+    """chip_smoke.py phase 3b: the reduced MiMC proofs of
+    tests/fixtures/golden_mimc.json, proved on the card with every MSM in
+    more than one chunk (chunk 8, tail on and off; chunk 2, where sum_sets
+    takes more than one level), split and fused, for all three
+    transcripts, equal the JAX package's bytes."""
+    out = chip_smoke.golden_multi_chunk(card)
+    assert len(out["proves"]) == 18
 
 
 def test_key_store_round_trip_on_the_card(card, tmp_path):

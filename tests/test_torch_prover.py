@@ -210,10 +210,22 @@ def _imports(path):
             yield node.module or ""
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def _port_files():
+    """chip_smoke.py and every Python file of the port's package."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "polymath_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_import_scan_reads_the_rust_vector_importer():
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert os.path.join("polymath_tpu_torch", "tools",
+                        "import_rust_vectors.py") in files
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
     assert len(files) > 30
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "polymath_tpu")]
