@@ -272,20 +272,23 @@ def prove(circuit, pk, rng, transcript_cls, ops) -> Proof:
     c_g1 = bls.G1.add(bls.G1.add(c_w, c_h), r_g1)
 
     # -- Fiat-Shamir round 1 ---------------------------------------------
-    t = transcript_cls(common.B_POLYMATH)
-    x1 = common.compute_x1(t, instance, [a_g1, c_g1])
-    y1 = common.compute_y1(x1, sigma)
-    y1_alpha = common.neg_power(y1, MINUS_ALPHA)
-    y1_gamma = common.neg_power(y1, MINUS_GAMMA)
+    with phase(f"{scope}::fiat-shamir round 1"):
+        t = transcript_cls(common.B_POLYMATH)
+        x1 = common.compute_x1(t, instance, [a_g1, c_g1])
+        y1 = common.compute_y1(x1, sigma)
+        y1_alpha = common.neg_power(y1, MINUS_ALPHA)
+        y1_gamma = common.neg_power(y1, MINUS_GAMMA)
 
-    x1_m = fr_const(x1, device)
-    u_at_x1 = mont_to_int(poly_eval_device(s1["u_coeffs"], x1_m))
-    a_at_x1 = (u_at_x1 + (ra0_i + ra1_i * x1) * y1_alpha) % R
-    pi_at_x1 = common.compute_pi_at_x1(pk.vk, instance, x1, y1_gamma)
-    c_at_x1 = common.compute_c_at_x1(y1_gamma, y1_alpha, a_at_x1, pi_at_x1)
+        x1_m = fr_const(x1, device)
+        u_at_x1 = mont_to_int(poly_eval_device(s1["u_coeffs"], x1_m))
+        a_at_x1 = (u_at_x1 + (ra0_i + ra1_i * x1) * y1_alpha) % R
+        pi_at_x1 = common.compute_pi_at_x1(pk.vk, instance, x1, y1_gamma)
+        c_at_x1 = common.compute_c_at_x1(y1_gamma, y1_alpha, a_at_x1,
+                                         pi_at_x1)
 
     # -- Fiat-Shamir round 2 ---------------------------------------------
-    x2 = common.compute_x2(t, x1, [a_at_x1, c_at_x1])
+    with phase(f"{scope}::fiat-shamir round 2"):
+        x2 = common.compute_x2(t, x1, [a_at_x1, c_at_x1])
 
     d_len = 2 * (n - 1) + sigma * (MINUS_ALPHA + MINUS_GAMMA) + 1
     with phase(f"{scope}::stage2a (D numerator)"):

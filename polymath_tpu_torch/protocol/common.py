@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from ..hostmath.bls12_381 import R
 from ..serial import codec
+from .poly_host import batch_inverse
 
 B_POLYMATH = b"polymath"
 #: alpha = -3, gamma = -5, used as exponents of y (common.rs:8-14).
@@ -52,17 +53,21 @@ def z_tilde_i(public_inputs, i: int) -> int:
 
 
 def compute_pi_at_x1(vk, public_inputs, x1: int, y1_gamma: int) -> int:
-    """PI(x1) via the 2*m0-term Lagrange sum (common.rs:49-71)."""
+    """PI(x1) via the 2*m0-term Lagrange sum (common.rs:49-71), the
+    denominators x1 - omega^i inverted in one batch.  A zero denominator
+    (x1 = omega^i) gives its term 0."""
     n = vk.n
-    acc = 0
-    num = (pow(x1, n, R) - 1) * pow(n, R - 2, R) % R
-    omega_i = 1
     m0 = len(public_inputs)
-    for i in range(2 * m0):
-        lag = num * pow((x1 - omega_i) % R, R - 2, R) % R
-        acc = (acc + z_tilde_i(public_inputs, i) * lag) % R
-        num = num * vk.omega % R
+    dens = []
+    omega_i = 1
+    for _ in range(2 * m0):
+        dens.append((x1 - omega_i) % R)
         omega_i = omega_i * vk.omega % R
+    acc = 0
+    num = (pow(x1, n, R) - 1) * pow(n, -1, R) % R
+    for i, inv in enumerate(batch_inverse(dens)):
+        acc = (acc + z_tilde_i(public_inputs, i) * (num * inv % R)) % R
+        num = num * vk.omega % R
     return acc * y1_gamma % R
 
 

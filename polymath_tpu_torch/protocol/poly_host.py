@@ -103,16 +103,18 @@ class Radix2Domain:
 
 
 def batch_inverse(values):
-    """Montgomery batch inversion of nonzero ints mod R."""
+    """Montgomery batch inversion of ints mod R.  A zero is left out of
+    the product and keeps 0, as its Fermat power does."""
     n = len(values)
     prefix = [1] * (n + 1)
     for i, v in enumerate(values):
-        prefix[i + 1] = prefix[i] * v % R
+        prefix[i + 1] = prefix[i] * v % R if v else prefix[i]
     inv_all = pow(prefix[n], R - 2, R)
     out = [0] * n
     for i in range(n - 1, -1, -1):
-        out[i] = prefix[i] * inv_all % R
-        inv_all = inv_all * values[i] % R
+        if values[i]:
+            out[i] = prefix[i] * inv_all % R
+            inv_all = inv_all * values[i] % R
     return out
 
 

@@ -8,6 +8,9 @@ versions, held byte for byte against the JAX package:
   tests/fixtures/golden_dummy.json, for all three transcripts;
 * a reduced MiMC key written by the JAX package's save_dir, loaded by the
   port's load_dir: the port's proof equals the JAX host prover's;
+* PI(x1) against the JAX package's at the benchmark's MiMC domain, zero
+  denominators included, and a proof over a batch of MiMC preimages
+  (more than two public inputs) through the port's verifier;
 * the corrupt-witness case, a key without a device SRS, and the
   package's hygiene (no jax or polymath_tpu import; no silent CPU
   fallback).
@@ -18,6 +21,7 @@ import copy
 import json
 import os
 import random
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,6 +34,10 @@ from polymath_tpu.frontend.sap import sparse_matvec
 from polymath_tpu.native import g1_msm as ref_g1_msm
 from polymath_tpu.ops.sparse import plan_segments, MAX_SEG
 from polymath_tpu.protocol import Polymath as RefPolymath, Rng as RefRng
+from polymath_tpu.protocol import common as ref_common
+from polymath_tpu.protocol.data_structures import (
+    Proof as RefProof, VerifyingKey as RefVK,
+)
 from polymath_tpu.protocol.poly_host import synthetic_divide
 from polymath_tpu.protocol.prover import (
     create_proof_with_assignment as ref_create_proof,
@@ -44,7 +52,8 @@ from polymath_tpu_torch.ops.limbs import FR_SPEC, ints_to_limbs, words_to_ints
 from polymath_tpu_torch.ops.poly import synthetic_divide_device
 from polymath_tpu_torch.ops.prover import fr_ints_to_mont_device
 from polymath_tpu_torch.ops.sparse import CooMatrix, coo_matvec
-from polymath_tpu_torch.protocol import Polymath, Rng, keys
+from polymath_tpu_torch.protocol import Polymath, Rng, common, keys
+from polymath_tpu_torch.protocol.poly_host import Radix2Domain, batch_inverse
 from polymath_tpu_torch.transcript import (
     ALL_TRANSCRIPTS, MerlinFieldTranscript,
 )
@@ -199,6 +208,77 @@ def test_jax_saved_mimc_key_gives_the_host_proof(tmp_path):
     got = pm.prove(pk, MiMCDemo(xl, xr, consts), port_rng)
     assert got.to_bytes() == want.to_bytes()
     assert pm.verify(pk.vk, [image], got)
+
+
+#: the benchmark's MiMC batch: 2,096,252 SAP rows, n = 2^21
+MIMC_DOMAIN = Radix2Domain(2_096_252)
+
+
+@pytest.mark.parametrize("x1_at", ["random", "0", "m0-1", "2m0-1"])
+@pytest.mark.parametrize("m0", [1, 2, 17, 1626])
+def test_pi_at_x1_matches_the_jax_package(m0, x1_at):
+    """The batched inversion gives the JAX package's Lagrange sum; where
+    x1 is one of the first 2*m0 points of the domain, one denominator is
+    0 and both drop its term."""
+    assert MIMC_DOMAIN.n == 1 << 21
+    vk = SimpleNamespace(n=MIMC_DOMAIN.n, omega=MIMC_DOMAIN.omega)
+    rng = random.Random(m0)
+    public = [1] + [rng.randrange(R) for _ in range(m0 - 1)]
+    y1_gamma = rng.randrange(R)
+    if x1_at == "random":
+        x1 = rng.randrange(R)
+    else:
+        i = {"0": 0, "m0-1": m0 - 1, "2m0-1": 2 * m0 - 1}[x1_at]
+        x1 = pow(MIMC_DOMAIN.omega, i, R)
+    want = ref_common.compute_pi_at_x1(vk, public, x1, y1_gamma)
+    assert common.compute_pi_at_x1(vk, public, x1, y1_gamma) == want
+
+
+@pytest.mark.parametrize("zeros", [(), (0,), (4,), (8,), (0, 4, 8)])
+def test_batch_inverse_gives_each_value_its_fermat_power(zeros):
+    """One inversion for the batch, a zero left out of the product and
+    given 0, as pow(0, r - 2, r) is."""
+    rng = random.Random(len(zeros))
+    values = [0 if i in zeros else rng.randrange(1, R) for i in range(9)]
+    assert batch_inverse(values) == [pow(v, R - 2, R) for v in values]
+
+
+class MiMCInstances:
+    """MiMCDemo composed once a preimage (xl, xr): one public image an
+    instance beside the constant 1."""
+
+    def __init__(self, constants, preimages=None, instances=None):
+        self.constants = constants
+        self.preimages = preimages or [(None, None)] * instances
+
+    def generate_constraints(self, cs):
+        for xl, xr in self.preimages:
+            MiMCDemo(xl, xr, self.constants).generate_constraints(cs)
+
+
+def test_mimc_batch_proof_verifies_with_its_images():
+    """Five 5-round MiMC preimages in one circuit (m0 = 6, 112 SAP rows):
+    the port's proof verifies under the port's verifier and under the JAX
+    package's with the five images, and under neither with one image
+    changed."""
+    crng = random.Random(11)
+    consts = [crng.randrange(R) for _ in range(5)]
+    preimages = [(crng.randrange(R), crng.randrange(R)) for _ in range(5)]
+    images = [mimc_hash(xl, xr, consts) for xl, xr in preimages]
+    pm = Polymath(transcript=MerlinFieldTranscript, device="cpu")
+    rng = Rng(5)
+    pk, vk = pm.setup(MiMCInstances(consts, instances=5), rng)
+    proof = pm.prove(pk, MiMCInstances(consts, preimages), rng)
+    ref = RefPolymath(transcript=RefMerlin, backend="host")
+    ref_vk = RefVK.from_bytes(vk.to_bytes())
+    ref_proof = RefProof.from_bytes(proof.to_bytes())
+    assert pm.verify(vk, images, proof)
+    assert ref.verify(ref_vk, images, ref_proof)
+    for k in (0, 3):
+        bad = list(images)
+        bad[k] = (bad[k] + 1) % R
+        assert not pm.verify(vk, bad, proof)
+        assert not ref.verify(ref_vk, bad, ref_proof)
 
 
 def _imports(path):
