@@ -34,7 +34,8 @@ Phases, each printing what it found:
    the main path's shapes, where the kernel's time, its plain version's
    time and its bound are taken (the quotient scan at D + 1 = 20,971,543
    coefficients, also whole: time, launches and peak memory against the
-   recurrence it replaced; the sum of sets at the d MSM's (40, 36, 20)
+   recurrence it replaced; the local NTT also at (8, 2048, 4096), the
+   wider half of the 2^23-point squaring at n = 2^22; the sum of sets at the d MSM's (40, 36, 20)
    and the other MSMs' (4, 36, 20), beside the 39- and 3-launch jac_add
    chains it replaced, on the same inputs);
 3. golden bytes: DummyCircuit / Rng(1234) / a=5, b=7 through the port's
@@ -606,7 +607,8 @@ def check_kernels(dev) -> dict:
     shapes that hold the edge cases: 2^16 field elements with every pair of
     the Fr edge values (edge_values); 2^12 points with the identity on
     either side, a (0, 0) leaf, P + P, P + (-P) and lanes of Fq edge
-    words; a (16, 64, 2048) batch of local NTTs; a (16, 4, 256) fused scan,
+    words; a (16, 64, 2048) batch of local NTTs, and the (8, 2048, 4096)
+    batch of the 2^23-point transform's wider half; a (16, 4, 256) fused scan,
     and the madd scan on its gathered leaves, with the lanes of
     scan_inputs (edge-word rows among them); the tree kernels on
     tree_inputs (edge-word Z); the gather at 40,960 rows and at 7,013 rows
@@ -723,6 +725,14 @@ def check_kernels(dev) -> dict:
         tw = N.local_twiddles(2048, inverse, dev)
         note("ntt_local", f"ntt_local inverse={inverse}",
              N.ntt_local_kernel(x, tw), plain_ntt_local(x, tw))
+    # the wider half of the prover's 2^23-point squaring at n = 2^22: 2048
+    # transforms of 4096 points (128 KB of shared memory, one block an SM)
+    x = field_inputs(dev, 1 << 16, 14).repeat(1, 128).reshape(8, 2048, 4096)
+    for inverse in (False, True):
+        tw = N.local_twiddles(4096, inverse, dev)
+        note("ntt_local", f"ntt_local (8, 2048, 4096) inverse={inverse}",
+             N.ntt_local_kernel(x, tw), plain_ntt_local(x, tw))
+    del x
 
     mults = scan_multipliers(8)
     row = cuda_poly.ROW
@@ -1003,6 +1013,19 @@ def measure_kernels(dev, errs: dict) -> dict:
           lambda: N.ntt_local_kernel(xl, tw), lambda: plain_ntt_local(xl, tw),
           10, 2 * 32 * nt + 32 * 1024, FR_MUL_OPS * (nt // 2) * 11)
     del x, xl
+    # the 2^23-point transform's wider half (n = 2^22's squaring, split
+    # (4096, 2048)): 2048 transforms of 4096, kept under the entry above
+    square = out["ntt_local"]
+    xw = field_inputs(dev, 1 << 12, 13).repeat(1, 2048).reshape(8, 2048, 4096)
+    tw = N.local_twiddles(4096, False, dev)
+    nt = xw.shape[1] * 4096
+    entry("ntt_local", "polymath_tpu_torch/csrc/ntt.cu",
+          "polymath_tpu/ops/ntt.py:87", "(8, 2048, 4096)",
+          lambda: N.ntt_local_kernel(xw, tw), lambda: plain_ntt_local(xw, tw),
+          10, 2 * 32 * nt + 32 * 2048, FR_MUL_OPS * (nt // 2) * 12)
+    square["wide"] = out["ntt_local"]
+    out["ntt_local"] = square
+    del xw
 
     # the quotient scan at the bench workload, as stage2b runs it: the D
     # numerator's D + 1 = 20,971,543 coefficients (2^12 seeded elements

@@ -2,5 +2,7 @@
 
 from .dummy import DummyCircuit, BenchCircuit
 from .mimc import MiMCDemo, mimc_hash, MIMC_ROUNDS
+from .sha256 import MerkleTwoPaths, sha256_compress
 
-__all__ = ["DummyCircuit", "BenchCircuit", "MiMCDemo", "mimc_hash", "MIMC_ROUNDS"]
+__all__ = ["DummyCircuit", "BenchCircuit", "MiMCDemo", "mimc_hash", "MIMC_ROUNDS",
+           "MerkleTwoPaths", "sha256_compress"]

@@ -1,10 +1,11 @@
-// Batched local radix-2 NTT over Fr (8 x 32-bit words), nl <= 2048.
+// Batched local radix-2 NTT over Fr (8 x 32-bit words), nl <= 4096.
 //
 // Replaces polymath_tpu/ops/ntt.py:_local_ntt_kernel (B6).  The TPU kernel
 // keeps an (8, nl) block of 16-bit limbs in VMEM and forms butterflies with
 // lane rolls and selects; here one thread block owns one transform, holds
 // it in dynamic shared memory as 8 word planes of nl words (64 KB at
-// nl = 2048, above the 48 KB default, hence cudaFuncSetAttribute), and runs
+// nl = 2048, above the 48 KB default, hence cudaFuncSetAttribute; 128 KB at
+// nl = 4096, one block an SM, the wider half of a split past 2^22), and runs
 // all log2(nl) decimation-in-time stages with a __syncthreads between
 // them.  Stage s (half-width m = 2^s) pairs i0 = 2m*g + j with i0 + m and
 // multiplies by w_nl^(j * nl/(2m)) from a twiddle table in global memory.

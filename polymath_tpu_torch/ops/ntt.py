@@ -4,14 +4,17 @@ Semantics match arkworks ``Radix2EvaluationDomain``: natural-order DFT
 ``evals[i] = sum_j coeffs[j] w^(ij)`` with the canonical 2-adic root from
 GENERATOR = 7; the inverse scales by n^-1.
 
-* ``ntt_local_batched`` — every DIT stage of a batch of nl <= 2048
+* ``ntt_local_batched`` — every DIT stage of a batch of nl <= 4096
   transforms in one launch of ``csrc/ntt.cu`` (one thread block per
   transform, in shared memory).  The caller bit-reverses the input and
   applies the inverse scale, as in the reference.
-* sizes above 2048 use the Bailey 4-step split n = n1 * n2: batched column
-  NTTs, the outer twiddle w^(j2 k1) (n^-1 folded in for the inverse),
-  batched row NTTs, transpose.  Largest n = 2^22, which the prover's size
-  2n squaring needs.
+* sizes above MAX_LOCAL = 2048 use the Bailey 4-step split n = n1 * n2,
+  n1 = 2^ceil(log2(n) / 2): batched column NTTs, the outer twiddle
+  w^(j2 k1) (n^-1 folded in for the inverse), batched row NTTs,
+  transpose.  Up to 2^22 points both halves are at most 2048; past it a
+  half takes up to MAX_WIDE = 4096 points, one launch of the same kernel
+  in 128 KB of shared memory.  Largest n = 2^24 (the prover's size-2n
+  squaring at n = 2^23).
 
 Arrays are (8, ...) int32 Fr words (limbs.py) in Montgomery form.
 """
@@ -27,7 +30,8 @@ from .field import FR, fr_const, fr_sum
 from .limbs import FR_SPEC, limbs_to_words, words_to_limbs
 
 W = FR_SPEC.W
-MAX_LOCAL = 2048   # largest single-block transform: 64 KB of shared memory
+MAX_LOCAL = 2048   # largest transform ``ntt`` runs in one launch: 64 KB
+MAX_WIDE = 2 * MAX_LOCAL   # largest half of a split: 128 KB of shared memory
 
 #: launches since the last reset (read by chip_smoke.py)
 LAUNCHES = {"ntt_local": 0}
@@ -126,10 +130,10 @@ def ntt_local_kernel(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
 
 def ntt_local_batched(x: torch.Tensor, inverse: bool,
                       scaled: bool = True) -> torch.Tensor:
-    """NTT along the last axis of (8, B, nl) words, nl <= 2048 a power of
+    """NTT along the last axis of (8, B, nl) words, nl <= 4096 a power of
     two.  ``scaled``: multiply by nl^-1 when inverse."""
     _, B, nl = x.shape
-    assert nl <= MAX_LOCAL and nl & (nl - 1) == 0
+    assert nl <= MAX_WIDE and nl & (nl - 1) == 0
     if nl == 1:
         return x
     rev = _cached(("rev", nl, str(x.device)), lambda: bitrev(nl, x.device))
@@ -160,12 +164,19 @@ def outer_twiddles(n: int, n1: int, inverse: bool, device,
                     str(device)), make)
 
 
-def _ntt_4step(a: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
+def split(n: int) -> tuple:
+    """The Bailey split (n1, n2) of n, n1 = 2^ceil(log2(n) / 2); each half
+    is at most MAX_WIDE."""
+    n1 = 1 << (n.bit_length() // 2)
+    if n1 > MAX_WIDE:
+        raise ValueError(f"ntt: n = {n} is past {MAX_WIDE ** 2} points")
+    return n1, n // n1
+
+
+def _ntt_4step(a: torch.Tensor, inverse: bool, n1: int) -> torch.Tensor:
     """Bailey split n = n1 * n2 (j = j2 + n2 j1, k = k1 + n1 k2)."""
-    log_n = n.bit_length() - 1
-    n1 = 1 << ((log_n + 1) // 2)
+    n = a.shape[1]
     n2 = n // n1
-    assert n1 <= MAX_LOCAL and n2 <= MAX_LOCAL, "n too large (max 2^22)"
     X = a.reshape(W, n1, n2).transpose(1, 2)             # (8, n2, n1)
     X = ntt_local_batched(X, inverse, scaled=False)      # [j2, k1]
     X = fr_mul(X, outer_twiddles(n, n1, inverse, a.device))
@@ -175,13 +186,14 @@ def _ntt_4step(a: torch.Tensor, n: int, inverse: bool) -> torch.Tensor:
 
 
 def ntt(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
-    """NTT / inverse NTT of (8, n) Montgomery Fr words, n a power of 2."""
+    """NTT / inverse NTT of (8, n) Montgomery Fr words, n a power of 2 up
+    to 2^24."""
     n = a.shape[1]
     if n == 1:
         return a
     if n <= MAX_LOCAL:
         return ntt_local_batched(a.reshape(W, 1, n), inverse).reshape(W, n)
-    return _ntt_4step(a, n, inverse)
+    return _ntt_4step(a, inverse, split(n)[0])
 
 
 def poly_eval_device(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ than one chunk (chip_smoke.py phase 3b); a key written by ``keys.save_dir`` and 
 ``keys.load_dir`` on the card proving to the bytes of the key it came
 from; the sharded NTT and MSM (parallel/) on one NCCL rank against the
 single-device results, and a kernel operand off the current card
-refused; and the measurement tools' kernels (T1 gather variants, T2
+refused; the NTT past 2^22 points (2^23, 2^24) and its 4096-point local
+kernel; and the measurement tools' kernels (T1 gather variants, T2
 primitive chains) against their plain versions, with T2's SASS holding
 every step.  None needs jax: the card machine has none.
 """
@@ -239,6 +240,38 @@ def test_gather_rows_ragged_with_out_of_range_indices(card):
     got = cuda_gather.gather_rows(table, idx)
     assert torch.equal(got, cuda_gather.gather_rows_plain(table, idx))
     assert not bool(got[:, 0, :2].any()) and bool(got[:, 1].any())
+
+
+@pytest.mark.parametrize("log_n", [23, 24])
+def test_ntt_round_trip_past_2_to_the_22(card, log_n):
+    """The local kernel at 4096 points (128 KB of shared memory) against its
+    plain version, and transforms of 2^23 and 2^24 points: the inverse
+    gives back the input, and sampled outputs are the polynomial's values
+    at those powers of the root."""
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.ops import ntt as N
+    from polymath_tpu_torch.ops.field import fr_const, fr_to_mont
+    from polymath_tpu_torch.ops.prover import mont_to_int
+    gen = torch.Generator().manual_seed(log_n)
+
+    def fr_words(count):
+        w = torch.randint(-2 ** 31, 2 ** 31, (8, count), generator=gen,
+                          dtype=torch.int64)
+        w[7] &= 0x3FFFFFFF                  # canonical: below 2^254 < r
+        return fr_to_mont(w.to(torch.int32).to(card))
+
+    x = fr_words(3 * N.MAX_WIDE).reshape(8, 3, N.MAX_WIDE)
+    tw = N.local_twiddles(N.MAX_WIDE, False, card)
+    assert torch.equal(N.ntt_local_kernel(x, tw).cpu(),
+                       N.ntt_local_kernel(x.cpu(), tw.cpu()))
+    n = 1 << log_n
+    a = fr_words(n)
+    ev = N.ntt(a)
+    assert torch.equal(N.ntt(ev, inverse=True), a)
+    omega = N.domain_omega(n)
+    for k in (1, 4097, n - 3):
+        at = N.poly_eval_device(a, fr_const(pow(omega, k, R), card))
+        assert mont_to_int(ev[:, k:k + 1]) == mont_to_int(at), k
 
 
 def test_sharded_ntt_and_msm_on_one_nccl_rank(card):

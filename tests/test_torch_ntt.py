@@ -91,3 +91,35 @@ def test_powers_and_poly_eval():
     got = PN.poly_eval_device(_mont_words(coeffs), _mont_words([x]))
     assert _canon(got) == [sum(c * pow(x, i, R) for i, c in enumerate(coeffs)) % R]
     assert PN.domain_omega(1 << 10) == RN.domain_omega(1 << 10)
+
+
+@pytest.mark.parametrize("n, n1", [(16, 8), (32, 8), (64, 16), (128, 32),
+                                   (256, 64), (512, 32), (1024, 64)])
+def test_split_past_local_squared_matches_radix2_domain(n, n1):
+    """The 4-step split with a wider first half than the square one, as
+    2^23 (n1 = 4096 = 2 n2) and 2^24 take it at the default sizes: both
+    directions against Radix2Domain."""
+    vals = _ints(n, n + n1)
+    dom = Radix2Domain(n)
+    a = _mont_words(vals)
+    ev = PN._ntt_4step(a, False, n1)
+    assert _canon(ev) == dom.fft(vals)
+    assert torch.equal(PN._ntt_4step(ev, True, n1), a)
+    assert _canon(PN._ntt_4step(a, True, n1)) == dom.ifft(vals)
+
+
+def test_split_past_four_local_squared_raises():
+    """ntt refuses 2^25 points before it reads them (a stride-0 view)."""
+    a = torch.zeros((8, 1), dtype=torch.int32).expand(8, 1 << 25)
+    with pytest.raises(ValueError, match="past"):
+        PN.ntt(a)
+
+
+def test_default_split_reaches_2_to_the_24():
+    """Up to 2^22 points both halves are at most 2048, as before; 2^23 and
+    2^24 take a half of 4096, what one launch holds; 2^25 is refused."""
+    assert [PN.split(1 << k) for k in (12, 21, 22, 23, 24)] == [
+        (64, 64), (2048, 1024), (2048, 2048), (4096, 2048), (4096, 4096)]
+    assert 2 * PN.MAX_LOCAL == PN.MAX_WIDE == 4096
+    with pytest.raises(ValueError):
+        PN.split(1 << 25)
