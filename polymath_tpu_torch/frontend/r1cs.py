@@ -9,6 +9,7 @@ and sparse matrix extraction.  All field values are canonical ints mod r.
 
 from __future__ import annotations
 
+from .. import native
 from ..hostmath.bls12_381 import R
 
 
@@ -169,7 +170,9 @@ class ConstraintSystem:
         Python call per variable — ~6 s for the 2^20-variable bench
         circuit.  Large circuits allocate filler/vector witnesses in one
         block instead; ``values`` is a list (or a callable returning one)
-        of length ``count``, evaluated only in prove mode.
+        of length ``count``, evaluated only in prove mode.  A list or tuple
+        of exact ints in [0, r), checked in one native pass, is taken as
+        given; anything else is reduced value by value.
         """
         start = self.num_witness_variables
         self.num_witness_variables += count
@@ -177,7 +180,11 @@ class ConstraintSystem:
             vals = values() if callable(values) else values
             if vals is None or len(vals) != count:
                 raise AssignmentMissing("assignment missing in prove mode")
-            self.witness_assignment.extend(int(v) % R for v in vals)
+            if (isinstance(vals, (list, tuple))
+                    and native.fr_all_canonical(vals)):
+                self.witness_assignment.extend(vals)
+            else:
+                self.witness_assignment.extend(int(v) % R for v in vals)
         return start
 
     def new_lc(self, combination: LinearCombination) -> Variable:

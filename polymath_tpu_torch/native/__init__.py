@@ -1,4 +1,5 @@
-"""Native (C++) host module: hashes, STROBE, and the pairing check.
+"""Native (C++) host module: hashes, STROBE, the pairing check, and the
+assignment's canonical Fr words.
 
 Built lazily with g++ into ``libpolymath_native.so``; all entry points have
 pure-Python fallbacks, so the package works without a toolchain.  Use
@@ -17,15 +18,19 @@ import fcntl
 import json
 import os
 import subprocess
+import sysconfig
 import threading
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_DIR, "libpolymath_native.so")
 _SIDECAR = _SO + ".build.json"
-_SOURCES = [os.path.join(_DIR, "hashes.cpp"), os.path.join(_DIR, "pairing.cpp")]
+_SOURCES = [os.path.join(_DIR, "hashes.cpp"), os.path.join(_DIR, "pairing.cpp"),
+            os.path.join(_DIR, "assign.cpp")]
 
 _lock = threading.Lock()
 _lib = None
+_pylib = None      # the same library through ctypes.PyDLL: its calls
+                   # hold the interpreter lock (assign.cpp reads objects)
 _build_failed = False
 
 
@@ -33,9 +38,11 @@ def _command(out: str) -> list:
     # -march=native: the pairing/MSM hot loops are 64x64->128 mul chains
     # (CIOS); letting gcc use ADX/BMI2 on the build host is worth ~15-20% of
     # verify latency.  The .so is machine-local (never shipped), and the
-    # sidecar ties it to this host's CPU.
+    # sidecar ties it to this host's CPU.  assign.cpp reads Python's
+    # headers from the running interpreter's include directory.
     return ["g++", "-O3", "-march=native", "-funroll-loops", "-shared",
-            "-fPIC", "-o", out] + _SOURCES
+            "-fPIC", "-I" + sysconfig.get_paths()["include"], "-o",
+            out] + _SOURCES
 
 
 def _cpu_flags() -> list:
@@ -89,7 +96,7 @@ def _build() -> bool:
 
 
 def get_lib():
-    global _lib, _build_failed
+    global _lib, _pylib, _build_failed
     with _lock:
         if _lib is not None:
             return _lib
@@ -125,12 +132,51 @@ def get_lib():
                 fn.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
                                ctypes.c_int, ctypes.c_char_p]
                 fn.restype = ctypes.c_int
+        pylib = ctypes.PyDLL(_SO)
+        if hasattr(pylib, "pm_fr_pack"):
+            pylib.pm_fr_pack.argtypes = [ctypes.py_object, ctypes.py_object,
+                                         ctypes.c_void_p, ctypes.c_int64]
+            pylib.pm_fr_pack.restype = ctypes.c_int64
+            pylib.pm_fr_all_canonical.argtypes = [ctypes.py_object]
+            pylib.pm_fr_all_canonical.restype = ctypes.c_int
+            _pylib = pylib
         _lib = lib
         return _lib
 
 
 def native_available() -> bool:
     return get_lib() is not None
+
+
+# -- the assignment's Fr words ----------------------------------------------
+# The prover's assignment is about 2^20 Python ints a proof at n = 2^21.
+# These walk the int objects once in C (assign.cpp) instead of converting
+# them one by one in Python (int(v) % r, to_bytes, a join).
+
+def _assign_lib():
+    return _pylib if get_lib() is not None else None
+
+
+def fr_pack(lists, out_ptr: int, n: int):
+    """Write the values of the sequences ``lists``, one after the other, as
+    canonical Fr words (value mod r) into the (8, n) int32 C-contiguous
+    buffer at ``out_ptr``: word k of column i is bits 32k..32k+31.  ``n``
+    must be their total length.  Returns how many values were not exact ints
+    in [0, r) (those take int(v) % r), or None without the library."""
+    lib = _assign_lib()
+    if lib is None:
+        return None
+    from ..hostmath.bls12_381 import R
+    return lib.pm_fr_pack(tuple(lists), R, out_ptr, n)
+
+
+def fr_all_canonical(values):
+    """Whether every element of the list or tuple ``values`` is an exact int
+    in [0, r); None without the library."""
+    lib = _assign_lib()
+    if lib is None:
+        return None
+    return bool(lib.pm_fr_all_canonical(values))
 
 
 def keccak256(data: bytes) -> bytes:

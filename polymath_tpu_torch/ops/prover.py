@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..hostmath import bls12_381 as bls
 from ..hostmath.bls12_381 import R
 from ..frontend.r1cs import synthesize, ConstraintSystem
@@ -34,14 +35,60 @@ from .poly import synthetic_divide_device
 from .sparse import CooMatrix, coo_matvec
 
 
+#: values converted to Fr words since the last reset, by route: "native"
+#: read an exact int in [0, r) in C; "fallback" took int(v) % r (in C, or
+#: in Python where the native library is not loaded)
+ASSIGN_COUNTS = {"native": 0, "fallback": 0}
+
+
+def fr_words(lists, out=None) -> torch.Tensor:
+    """The values of the sequences ``lists``, one after the other, as an
+    (8, N) int32 tensor of canonical Fr words (value mod r; word k of column
+    i is bits 32k..32k+31), written into ``out`` where given."""
+    n = sum(len(v) for v in lists)
+    if out is None:
+        out = torch.empty((FR_SPEC.W, n), dtype=torch.int32)
+    if (out.shape != (FR_SPEC.W, n) or out.dtype != torch.int32
+            or out.device.type != "cpu" or not out.is_contiguous()):
+        raise ValueError(f"fr_words: out must be a contiguous ({FR_SPEC.W},"
+                         f" {n}) int32 host tensor")
+    odd = native.fr_pack(lists, out.data_ptr(), n)
+    if odd is None:
+        buf = bytearray().join((int(v) % R).to_bytes(32, "little")
+                               for vals in lists for v in vals)
+        u32 = np.frombuffer(buf, dtype="<u4").reshape(n, FR_SPEC.W)
+        out.copy_(torch.from_numpy(u32.T.view(np.int32)))
+        odd = n
+    ASSIGN_COUNTS["native"] += n - odd
+    ASSIGN_COUNTS["fallback"] += odd
+    return out
+
+
+def upload_words(lists, device, staging: dict) -> torch.Tensor:
+    """``fr_words(lists)`` on ``device``.  For a CUDA device they are packed
+    into a pinned buffer kept in ``staging`` (column count -> buffer and the
+    event of its last copy) and copied without blocking the host; a buffer
+    is rewritten only once its last copy is done."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fr_words(lists).to(device)
+    n = sum(len(v) for v in lists)
+    buf, copied = staging.get(n, (None, None))
+    if buf is None:
+        buf = torch.empty((FR_SPEC.W, n), dtype=torch.int32, pin_memory=True)
+    else:
+        copied.synchronize()
+    words = fr_words(lists, out=buf).to(device, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(device))
+    staging[n] = (buf, copied)
+    return words
+
+
 def fr_ints_to_mont_device(values, device) -> torch.Tensor:
     """list of canonical ints -> (8, N) Montgomery words on ``device``
     (the canonical words travel, ``to_mont`` runs there)."""
-    n = len(values)
-    buf = b"".join((int(v) % R).to_bytes(32, "little") for v in values)
-    u32 = np.frombuffer(buf, dtype="<u4").reshape(n, FR_SPEC.W)
-    words = torch.from_numpy(np.array(u32.T, order="C").view(np.int32))
-    return fr_to_mont(words.to(device))
+    return fr_to_mont(fr_words([values]).to(device))
 
 
 def mont_to_int(t: torch.Tensor) -> int:
@@ -71,6 +118,8 @@ class DeviceArtifacts:
             raise ValueError("the proving key holds no device SRS: make it "
                              "with Polymath.setup or protocol.keys.load_dir")
         self.srs = {name: t.to(device) for name, t in srs.items()}
+        #: upload_words' pinned buffers for this key's assignment
+        self.staging = {}
 
 
 def get_artifacts(pk, device) -> DeviceArtifacts:
@@ -215,8 +264,9 @@ def prove(circuit, pk, rng, transcript_cls, ops) -> Proof:
     assert len(instance) == m0
 
     with phase(f"{scope}::h2d assignment"):
-        x_m = fr_ints_to_mont_device(instance, device)
-        z_r = sync(fr_ints_to_mont_device(instance + witness, device))
+        z_r = sync(fr_to_mont(upload_words((instance, witness), device,
+                                           art.staging)))
+    x_m = z_r[:, :m0]
 
     with phase(f"{scope}::stage1 (matvecs+NTTs+h)"):
         s1 = _stage1(art, x_m, z_r, ops)

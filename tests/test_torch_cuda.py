@@ -18,7 +18,8 @@ single-device results, and a kernel operand off the current card
 refused; the NTT past 2^22 points (2^23, 2^24) and its 4096-point local
 kernel; and the measurement tools' kernels (T1 gather variants, T2
 primitive chains) against their plain versions, with T2's SASS holding
-every step.  None needs jax: the card machine has none.
+every step; and the prover's assignment upload through its reused pinned
+buffer.  None needs jax: the card machine has none.
 """
 
 import copy
@@ -330,3 +331,25 @@ def test_operand_off_the_current_card_raises(card, monkeypatch):
                         lambda: x.device.index + 1)
     with pytest.raises(RuntimeError, match="current device is cuda:"):
         fr_mul(x, x)
+
+
+def test_upload_words_reuses_its_pinned_buffer(card):
+    """The prover's assignment upload: four assignments of one column count
+    packed in turn into one pinned buffer, each copied without blocking and
+    the buffer rewritten only after that copy: every upload equals its
+    words packed afresh."""
+    from polymath_tpu_torch.hostmath.bls12_381 import R
+    from polymath_tpu_torch.ops.prover import fr_words, upload_words
+    rng = random.Random(17)
+    staging = {}
+    got, want = [], []
+    for k in range(4):
+        lists = ([1, rng.randrange(R)],
+                 [rng.randrange(R) for _ in range(1 << 20)] + [R + k, -k])
+        got.append(upload_words(lists, card, staging))
+        want.append(fr_words(lists))
+    ((n, (buf, _)),) = staging.items()
+    assert n == 2 + (1 << 20) + 2 and buf.is_pinned()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
