@@ -8,10 +8,13 @@ program (2 points, chunk 16) alone takes 170 s and 6.8 GB, and the
 tail-split test at chunk 32, the least that keeps both of its branches,
 ran past 300 s and 10 GB in a whole run with six workers.  Other tests,
 such as the benchmark's own under ``benchmark/tests``, get no limit from
-here."""
+here.  Where jax is not installed, the test files that need it are not
+collected (``pytest_ignore_collect``)."""
 
+import ast
 import contextlib
 import faulthandler
+import importlib.util
 import pathlib
 import signal
 import sys
@@ -26,6 +29,9 @@ import pytest
 # dump is what shows where such a test is stuck.
 LIMIT = 300
 SUITE = pathlib.Path(__file__).parent / "tests"
+# Top-level packages that need jax: the JAX package and its tools
+JAX_ROOTS = {"jax", "jaxlib", "polymath_tpu", "tools"}
+JAX_INSTALLED = importlib.util.find_spec("jax") is not None
 
 # Node id -> what it took alone, in its own process, on an empty compile
 # cache (cold) and on the cache that run left (warm); 8 cores, 62 GB host.
@@ -47,6 +53,21 @@ SLOW = {
     "tests/test_sharded_ops.py::test_sharded_msm_2_10_points":
         "cold over 310 s at 4.6 GB; warm over 310 s at 6.9 GB",
 }
+
+
+def pytest_ignore_collect(collection_path):
+    """Where jax is not installed (the CUDA card's machine), leave out the
+    test files that import jax, the JAX package or its tools: they cannot
+    be imported there, and without them ``pytest -m cuda tests/``
+    collects the card tests."""
+    if collection_path.suffix != ".py" or JAX_INSTALLED:
+        return None
+    body = ast.parse(collection_path.read_text(), str(collection_path)).body
+    names = [a.name for n in body if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in body
+              if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+    return True if {n.split(".")[0] for n in names} & JAX_ROOTS else None
 
 
 @pytest.hookimpl(tryfirst=True)

@@ -30,7 +30,7 @@
 //             warp writes the (24, 32) tile out coalesced.
 // u16 rows of 24 words in one thread's registers would be 384 registers;
 // here a thread holds 4 words of each of its u rows (64 at u16), and ptxas
-// reports no spill (chip_smoke.py prints the report).
+// reports no spill (tests/test_torch_cuda.py reads the report).
 //
 // Bound on the H100: bytes.  The table, idx and the output each moved once
 // (at the tool's n = 2^18, m = 22 * 2^18: 33.6 + 23.1 + 553.6 MB = 610 MB,

@@ -21,11 +21,12 @@
 // predicates made from it (zero == 0, zero != 1), so no two neighbouring
 // adds share a guard, and the select row starts from b0 = a ^ zero, which
 // it uses once more after the chain (adding b0 - a = 0).  The function is
-// unchanged.  chip_smoke.py counts the row's SASS instruction
-// in each instantiation (cuobjdump -sass) and fails if any has fewer than
-// K.  One thread per element; the i32 row multiplies as unsigned words
-// (signed overflow is undefined in C++) and the u16 row uses PTX's 16-bit
-// multiply, whose result is the low 16 bits.
+// unchanged.  polymath_tpu_torch/tools/primbench.py:check_sass counts
+// the row's SASS instruction in each instantiation (cuobjdump -sass) and
+// fails if any has fewer than K.  One thread per element; the i32 row
+// multiplies as unsigned words (signed overflow is undefined in C++) and
+// the u16 row uses PTX's 16-bit multiply, whose result is the low 16
+// bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

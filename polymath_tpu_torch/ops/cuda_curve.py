@@ -18,7 +18,8 @@ from .curve import (
     jac_to_affine_core, join_words, split_words,
 )
 
-#: launches per kernel since the last reset (read by chip_smoke.py)
+#: launches per kernel since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"jac_add": 0, "jac_madd": 0, "jac_double": 0, "to_affine": 0}
 
 

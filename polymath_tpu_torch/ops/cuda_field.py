@@ -19,7 +19,8 @@ from .limbs import FR_SPEC, limbs_to_words, words_to_limbs
 
 W = FR_SPEC.W
 
-#: launches per kernel since the last reset (read by chip_smoke.py)
+#: launches per kernel since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"fr_mul": 0, "fr_sqr": 0, "fr_butterfly": 0}
 
 

@@ -19,7 +19,8 @@ from . import _build
 
 ROW = 24
 
-#: launches since the last reset (read by chip_smoke.py)
+#: launches since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"gather_rows": 0}
 
 

@@ -32,7 +32,8 @@ W = FR_SPEC.W
 #: elements a thread scans (csrc/poly.cu kRow)
 ROW = 16
 
-#: launches per kernel since the last reset (read by chip_smoke.py)
+#: launches per kernel since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"affine_scan_reduce": 0, "affine_scan_apply": 0}
 
 

@@ -39,7 +39,8 @@ from .curve import (
     AFF, JAC, jac_identity_words, jac_madd_core, join_words, split_words,
 )
 
-#: launches since the last reset (read by chip_smoke.py)
+#: launches since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"madd_scan": 0, "fused_scan": 0}
 
 

@@ -42,7 +42,8 @@ from .curve import (
 )
 from .field import FQ
 
-#: launches since the last reset (read by chip_smoke.py)
+#: launches since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"row_offsets": 0, "window_fold": 0, "sum_sets": 0}
 
 #: csrc/tree.cu's block size; the most segments or slices a window has

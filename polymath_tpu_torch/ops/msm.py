@@ -89,7 +89,7 @@ MAX_C = 16
 MAX_CHUNK = 1 << 22
 
 #: MSMs since the last reset of more than one chunk, whose window sums one
-#: ``sum_sets`` launch adds (read by chip_smoke.py)
+#: ``sum_sets`` launch adds (read by the card tests and the golden tests)
 RUNS = {"multi_chunk": 0}
 
 

@@ -33,7 +33,8 @@ W = FR_SPEC.W
 MAX_LOCAL = 2048   # largest transform ``ntt`` runs in one launch: 64 KB
 MAX_WIDE = 2 * MAX_LOCAL   # largest half of a split: 128 KB of shared memory
 
-#: launches since the last reset (read by chip_smoke.py)
+#: launches since the last reset (read by the benchmark's
+#: launches_per_proof, the card tests and tools/kernel_table.py)
 LAUNCHES = {"ntt_local": 0}
 
 

@@ -13,7 +13,8 @@ log_16(N) levels, O(N) work.
 
 ``affine_scan_plain`` is the blocked fr_mul / fr_add recurrence that this
 replaced (64 lock-step launches of one product over all rows a level): the
-plain version the tests and chip_smoke.py hold the kernels' scan against.
+plain version the tests and the kernel table hold the kernels' scan
+against.
 """
 
 from __future__ import annotations

@@ -61,7 +61,7 @@ from .prover_sharded import ShardedOps, create_proof_sharded
 CHECK_SEED = 11        # the reference's run_sharded_check seed
 MIMC_SEED = 3          # the reference's run_sharded_prove seed
 MIMC_ROUNDS = 15
-BENCH_PROVE_SEED = 7   # chip_smoke.py phase 4b's proof Rng
+BENCH_PROVE_SEED = 7   # the proof Rng of the BenchCircuit step
 
 
 def canonical(words: np.ndarray) -> list:

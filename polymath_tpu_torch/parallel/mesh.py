@@ -33,7 +33,7 @@ from ..ops.limbs import FR_SPEC, ints_to_words, words_to_ints
 from ..utils.timers import phase
 
 #: calls and bytes handed in by this rank, by collective, since the last
-#: reset (read by chip_smoke.py and the dry run)
+#: reset (read by the dry run and the card tests)
 COLLECTIVES = {name: {"calls": 0, "bytes": 0}
                for name in ("all_to_all", "all_gather", "broadcast")}
 

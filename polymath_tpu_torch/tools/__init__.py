@@ -15,7 +15,10 @@ and has ``main(argv=None) -> dict``, which returns what it prints:
 * ``fusedprof``: each stage of one MSM chunk timed on its own;
 * ``productprobe``: what one Montgomery product costs (``to_affine`` at
   the scans' lane count and at a full card, and the SASS instructions of
-  one inlined product).
+  one inlined product);
+* ``kernel_table``: every kernel alone at the main path's shapes against
+  its bound and its plain version, the rows of PERF.md's kernel table, on
+  the inputs and plain versions of ``cases``, which the card tests share.
 
 ``import_rust_vectors FILE`` (the reference's
 tools/import_rust_vectors.py) is host only and takes no ``--device``: it
@@ -26,8 +29,11 @@ installs them as a test fixture.
 cpu`` runs the kernels' plain versions, and every time it reports is then
 read on the host clock of the CPU run, never a device time.
 
-The card's peak rates, the bound rule and the CUDA-event timer live here
-once; chip_smoke.py and every tool use them.
+The card's peak rates, the operation counts of the field and curve
+formulas, the bound rule and the CUDA-event timer live here once, and
+every tool uses them.  ``benchmark/harness/peaks.py`` keeps a frozen copy
+of the rates and of the madd count, since the benchmark imports nothing
+of the program to count its work.
 """
 
 from __future__ import annotations
@@ -42,6 +48,20 @@ MEM_RATE = 3.35e12          # bytes/s, H100 SXM HBM3
 # fp32 lanes) x 132 SMs x 1.98 GHz
 INT_OPS_RATE = 16.7e12
 F32_OPS_RATE = 33.5e12      # fp32 instructions/s: 128 lanes x 132 SMs x 1.98 GHz
+
+# 32-bit multiply-adds per operation (CIOS / SOS with 32-bit words; a
+# wide product counts two, each reduction digit one)
+FR_MUL_OPS = 2 * (64 + 64) + 8
+FR_SQR_OPS = 2 * (36 + 64) + 8
+FQ_MUL_OPS = 2 * (144 + 144) + 12
+FQ_SQR_OPS = 2 * (78 + 144) + 12
+MADD_OPS = 8 * FQ_MUL_OPS + 3 * FQ_SQR_OPS         # madd-2007-bl
+ADD_OPS = 11 * FQ_MUL_OPS + 5 * FQ_SQR_OPS         # add-2007-bl
+# g1.cu's Fermat inversion: 384 squarings, popcount(q - 2) = 229 products,
+# then zinv^2 and three products
+TO_AFFINE_OPS = 385 * FQ_SQR_OPS + (229 + 3) * FQ_MUL_OPS
+DOUBLE_OPS = 2 * FQ_MUL_OPS + 5 * FQ_SQR_OPS       # dbl-2009-l
+BFLY_OPS = FR_MUL_OPS                              # one product a pair
 
 
 def bound_ms(nbytes: float, ops: float, rate: float = INT_OPS_RATE) -> tuple:

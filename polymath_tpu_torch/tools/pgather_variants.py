@@ -42,7 +42,7 @@ VARIANTS = ("rowload u8", "rowload u16", "tileload u8", "tileload u16",
 #: variants that compute the plain row gather (the probes do not)
 GATHERS = VARIANTS[:4]
 
-#: launches since the last reset (read by chip_smoke.py)
+#: launches since the last reset (read by tools/kernel_table.py)
 LAUNCHES = {f"pgather_variants:{v}": 0 for v in VARIANTS}
 
 

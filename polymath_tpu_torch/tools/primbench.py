@@ -76,7 +76,7 @@ _TYPES = {"u32": (np.uint32, np.int32, torch.int32),
 _NOT_PRODUCTS = ("IMAD.MOV", "IMAD.SHL", "IMAD.WIDE", "IMAD.HI", "IMAD.IADD",
                  "IMAD.X")
 
-#: launches since the last reset (read by chip_smoke.py)
+#: launches since the last reset (read by tools/kernel_table.py)
 LAUNCHES = {f"primbench:{n}": 0 for n in NAMES}
 
 

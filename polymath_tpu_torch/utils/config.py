@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import subprocess
 
 import torch
 
@@ -35,17 +34,6 @@ def device_sync(x=None):
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
     return x
-
-
-def nvidia_smi_line() -> str:
-    """The card's name and power limit as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` prints them (the
-    first card)."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

@@ -6,10 +6,9 @@ With tracing on, ``sync`` waits for the card so a phase measures device
 execution, and each phase also opens an NVTX range so it shows up as a
 named span in a CUDA profiler trace.
 
-Every phase's last duration is kept in ``TIMES`` (label -> seconds), which
-``chip_smoke.py`` reads.  Each callable in ``HOOKS`` is called with the
-label and entered as a context manager around every phase (chip_smoke.py
-records each phase's kernel launches and peak device memory so).
+Each callable in ``HOOKS`` is called with the label and entered as a
+context manager around every phase: the benchmark's traced run times each
+phase so, and the card tests count each phase's kernel launches.
 
 Usage::
 
@@ -29,8 +28,6 @@ from .config import device_sync
 
 _DEPTH = contextvars.ContextVar("polymath_phase_depth", default=0)
 
-#: label -> seconds of the phase's most recent run
-TIMES: dict = {}
 #: hook(label) -> context manager, entered around every phase
 HOOKS: list = []
 
@@ -78,7 +75,6 @@ def phase(label: str):
     finally:
         _DEPTH.reset(tok)
         dt = time.time() - t0
-        TIMES[label] = dt
         if tracing:
             human = f"{dt*1e3:.3f}ms" if dt < 1 else f"{dt:.3f}s"
             print(f"{indent}End:   {label} {human}", file=sys.stderr)

@@ -9,9 +9,9 @@ square, the sum and the difference against Python integers.  A carry-chain
 fault shows only when carries ripple across many words, so besides random
 values every pair of edge values is tried: 0, 1, p - 1, p - 2, R mod p,
 R^2 mod p, and values with many 0xffffffff words below p
-(``chip_smoke.edge_values``, which phase 2 plants in the kernels' inputs
-on the card).  The words are the stored (Montgomery) words, as the
-kernels read them.
+(``polymath_tpu_torch.tools.cases.edge_values``, which the card tests and
+the kernel table plant in the kernels' inputs).  The words are the stored
+(Montgomery) words, as the kernels read them.
 """
 
 import shutil
@@ -20,8 +20,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from chip_smoke import edge_values
 from polymath_tpu_torch.ops import _build
+from polymath_tpu_torch.tools.cases import edge_values
 
 FR = 0x73eda753299d7d483339d80809a1d80553bda402fffe5bfeffffffff00000001
 FQ = int("1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f624"

@@ -8,15 +8,19 @@ held against the JAX package's own bytes (tests/fixtures/golden_mimc.json):
 * the port on the CPU proves the Merlin bytes at ``POLYMATH_MSM_CHUNK=16``
   with the host tail off (all five MSMs take more than one chunk, so the
   plain ``sum_sets`` adds their chunk sums) and on (the tail takes the
-  remainders of the c_w and c_h MSMs, which leaves each one chunk).
+  remainders of the c_w and c_h MSMs, which leaves each one chunk), with
+  the split scan and with the fused one (``POLYMATH_MSM_FUSED=1``): a
+  whole prove in the fused configuration gives the split prove's bytes,
+  which are the JAX package's.
 
-chip_smoke.py phase 3b proves the same bytes on the card at chunks 8 and
-2, split and fused.  The recipe is that of tests/test_torch_keys.py: 5
-rounds, constants from random.Random(9); Rng(7) draws the preimage (xl,
-xr) first, setup starts from the state after that, and each prove from a
-copy of the state after setup.  The host prover runs with the native G1
-MSM in its hook (an exact group sum, as its default Pippenger), the
-points cut to the scalars.
+tests/test_torch_cuda.py::test_golden_multi_chunk_proofs_on_the_card
+proves the same bytes on the card at chunks 8 and 2, split and fused.
+The recipe is that of tests/test_torch_keys.py: 5 rounds, constants from
+random.Random(9); Rng(7) draws the preimage (xl, xr) first, setup starts
+from the state after that, and each prove from a copy of the state after
+setup.  The host prover runs with the native G1 MSM in its hook (an
+exact group sum, as its default Pippenger), the points cut to the
+scalars.
 
 Rewrite the fixture (only when the reference's bytes rightly change) with
 
@@ -133,15 +137,21 @@ def test_port_setup_gives_the_fixture_vk(port_key, golden):
     assert port_key[0].vk.to_bytes().hex() == golden["vk"]
 
 
-@pytest.mark.parametrize("tail, multi_chunk", [("0", 5), ("1", 3)],
-                         ids=["tail_off", "tail_on"])
+@pytest.mark.parametrize("tail, multi_chunk, fused", [
+    ("0", 5, "0"), ("1", 3, "0"), ("0", 5, "1"), ("1", 3, "1")],
+    ids=["tail_off", "tail_on", "tail_off-fused", "tail_on-fused"])
 def test_port_multi_chunk_prove_gives_the_fixture_proof(port_key, golden,
-                                                        tail, multi_chunk):
+                                                        tail, multi_chunk,
+                                                        fused):
+    """The port's CPU prove, split and fused, with the host tail off and
+    on: the JAX package's Merlin bytes, verified.  Its card counterpart is
+    tests/test_torch_cuda.py::test_golden_multi_chunk_proofs_on_the_card."""
     pk, rng = port_key
     consts, xl, xr, _ = recipe_inputs(Rng)
     pm = Polymath(transcript=MerlinFieldTranscript, device="cpu")
     M.RUNS["multi_chunk"] = 0
-    with environ(POLYMATH_MSM_CHUNK="16", POLYMATH_MSM_TAIL=tail):
+    with environ(POLYMATH_MSM_CHUNK="16", POLYMATH_MSM_TAIL=tail,
+                 POLYMATH_MSM_FUSED=fused):
         proof = pm.prove(pk, MiMCDemo(xl, xr, consts), copy.deepcopy(rng))
     assert M.RUNS["multi_chunk"] == multi_chunk
     assert proof.to_bytes().hex() == golden["proofs"]["merlin"]

@@ -3,7 +3,10 @@
 first test), on the CPU through the kernels' plain versions: identities,
 zero scalars, duplicate bases (the safe form and the fast-mode collision
 flag), the peeled host tail, bases longer than the scalars, Montgomery
-scalars and deferred results."""
+scalars and deferred results.  The MSM tuning overrides: each of
+POLYMATH_MSM_C, _SEQ, _CHUNK and _TAIL=0, set in turn, gives the native
+host MSM of a few hundred distinct points; values the kernels cannot take
+raise; unset, the schedule is today's."""
 
 import random
 
@@ -188,3 +191,89 @@ def test_msm_of_five_chunks_sums_them_in_one_call(monkeypatch, tail):
         g1_msm(pts[:16], sc[:16])
     assert len(calls["sum_sets"]) == 1 and calls["window_fold"] == 6
     assert M.RUNS["multi_chunk"] == runs + 1
+
+
+# -- the MSM tuning overrides -------------------------------------------------
+
+OVERRIDES = ("POLYMATH_MSM_C", "POLYMATH_MSM_SEQ", "POLYMATH_MSM_CHUNK",
+             "POLYMATH_MSM_TAIL", "POLYMATH_MSM_FUSED")
+
+
+@pytest.fixture
+def no_overrides(monkeypatch):
+    for name in OVERRIDES:
+        monkeypatch.delenv(name, raising=False)
+
+
+@pytest.fixture(scope="module")
+def msm_case():
+    """200 distinct points, random scalars, and their MSM by the native
+    host Pippenger."""
+    pts = _distinct_points(200, 11)
+    rng = random.Random(12)
+    sc = [rng.randrange(R) for _ in pts]
+    return _rows(pts), _scalars(sc), g1_msm(pts, sc)
+
+
+@pytest.mark.parametrize("name, value, chunk, tails", [
+    ("POLYMATH_MSM_C", "5", None, 0),
+    ("POLYMATH_MSM_SEQ", "4", None, 0),
+    ("POLYMATH_MSM_CHUNK", "64", None, 1),
+    ("POLYMATH_MSM_TAIL", "0", 64, 0),
+])
+@pytest.mark.usefixtures("no_overrides")
+def test_override_gives_the_host_msm(msm_case, monkeypatch, name, value,
+                                     chunk, tails):
+    """Each override alone changes the shape the MSM runs at (200 points:
+    one 256-point chunk, c = 5 and seq 16 by default), not its sum.  200 =
+    3 x 64 + 8: at 64-point chunks the 8-point tail goes to the host (the
+    POLYMATH_MSM_CHUNK case) unless POLYMATH_MSM_TAIL=0 keeps it on the
+    device."""
+    rows, words, want = msm_case
+    calls = []
+    host_tail = M._host_tail
+    monkeypatch.setattr(M, "_host_tail",
+                        lambda *a: calls.append(1) or host_tail(*a))
+    monkeypatch.setenv(name, value)
+    if name == "POLYMATH_MSM_C":
+        assert M.window_params(256) == (5, 51)
+        monkeypatch.setenv(name, "7")
+        assert M.window_params(256) == (7, 37)
+    elif name == "POLYMATH_MSM_SEQ":
+        assert M.scan_seq(256) == 4
+        monkeypatch.setenv(name, "1024")          # past the chunk: one row
+        assert M.scan_seq(256) == 256
+        monkeypatch.setenv(name, value)
+    elif name == "POLYMATH_MSM_CHUNK":
+        assert M.choose_chunk(200) == 64
+    assert M.msm_device(rows, words, chunk=chunk) == want
+    assert len(calls) == tails
+
+
+@pytest.mark.parametrize("name, value", [
+    ("POLYMATH_MSM_C", "0"), ("POLYMATH_MSM_C", "17"),
+    ("POLYMATH_MSM_C", "x"), ("POLYMATH_MSM_SEQ", "3"),
+    ("POLYMATH_MSM_SEQ", "0"), ("POLYMATH_MSM_SEQ", "-8"),
+    ("POLYMATH_MSM_CHUNK", "100"), ("POLYMATH_MSM_CHUNK", "1"),
+    ("POLYMATH_MSM_CHUNK", str(1 << 23)), ("POLYMATH_MSM_TAIL", "maybe"),
+])
+@pytest.mark.usefixtures("no_overrides")
+def test_unsupported_override_raises(msm_case, monkeypatch, name, value):
+    rows, words, _ = msm_case
+    monkeypatch.setenv(name, value)
+    with pytest.raises(ValueError, match=name):
+        M.msm_device(rows, words)
+
+
+@pytest.mark.usefixtures("no_overrides")
+def test_schedule_unset_is_todays():
+    c = [4] * 7 + [5, 6, 7, 8, 8, 8, 8, 9, 10, 11, 12, 13, 14, 14, 14, 14]
+    seq = [2, 2, 4, 4, 8, 8, 16, 16, 32, 32, 64, 64, 128, 128] + [256] * 9
+    for k in range(1, 24):
+        assert M.window_params(1 << k) == (c[k - 1], -(-255 // c[k - 1]))
+        assert M.scan_seq(1 << k) == seq[k - 1]
+    assert [M.choose_chunk(m) for m in
+            (1, 2, 3, 100, 4097, 1 << 19, (1 << 19) + 1, 1 << 22)] == \
+        [2, 2, 4, 128, 8192, 1 << 19, 1 << 19, 1 << 19]
+    assert M.default_chunk() == M.DEFAULT_CHUNK == 1 << 19
+    assert M.tail_mode()

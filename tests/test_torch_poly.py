@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import edge_values
 from polymath_tpu.ops.limbs import ints_to_limbs as ref_ints_to_limbs
 from polymath_tpu.ops.limbs import limbs_to_ints as ref_limbs_to_ints
 from polymath_tpu.ops.poly_jax import affine_scan as ref_affine_scan
@@ -38,6 +37,7 @@ from polymath_tpu_torch.ops import _build, cuda_poly
 from polymath_tpu_torch.ops.cuda_field import fr_mul
 from polymath_tpu_torch.ops.field import fr_const
 from polymath_tpu_torch.ops.limbs import FR_SPEC, ints_to_words, words_to_ints
+from polymath_tpu_torch.tools.cases import edge_values
 from polymath_tpu_torch.ops.poly import (
     affine_scan, plan_levels, synthetic_divide_device)
 

@@ -291,8 +291,9 @@ def _imports(path):
 
 
 def _port_files():
-    """chip_smoke.py and every Python file of the port's package."""
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    """tests/torch_cases.py (the card tests' support) and every Python
+    file of the port's package."""
+    files = [os.path.join(ROOT, "tests", "torch_cases.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "polymath_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return files

@@ -13,11 +13,14 @@ through the kernels' plain versions.
   1e-4 (XLA may fuse it, the port's plain version rounds twice).
 * kernel_metrics passes its host-oracle check at 2^8 points; fusedprof's
   stages compose to msm_chunk's window sums, split and fused, at a
-  16-point chunk; every tool raises without a card unless asked for the
+  16-point chunk; kernel_table's rows compare equal at tiny shapes;
+  msmtime at N = 256 with two configurations gives one point, and raises
+  where two differ; every tool raises without a card unless asked for the
   CPU.
 """
 
 import functools
+import os
 import re
 from unittest import mock
 
@@ -30,7 +33,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import tools.pgather_variants as PV
-from polymath_tpu_torch.tools import fusedprof, kernel_metrics, productprobe
+from polymath_tpu_torch.ops import msm as M
+from polymath_tpu_torch.tools import fusedprof, kernel_metrics, kernel_table
+from polymath_tpu_torch.tools import msmtime, productprobe
 from polymath_tpu_torch.tools import pgather_variants as GV
 from polymath_tpu_torch.tools import primbench as PB
 
@@ -227,10 +232,53 @@ def test_productprobe_small():
     assert all(v["ns_per_step"] > 0 for v in res["to_affine"].values())
 
 
+def test_kernel_table_small(monkeypatch):
+    """Every row of the kernel table at a tiny shape on the CPU, where each
+    kernel's wrapper runs its plain version: each compares equal."""
+    monkeypatch.setattr(kernel_table, "SHAPES", {
+        "fr": 1 << 12, "lanes": 1 << 7, "chunk": 1 << 6, "ntt": (2, 2048),
+        "ntt_wide": (1, 4096), "quotient": 4103,
+        "pgather_variants": ["--log-n", "14", "--windows", "1", "--reps",
+                             "1"],
+        "primbench": ["--reps", "1"]})
+    res = kernel_table.main(["--device", "cpu"])
+    assert res["device"] == "cpu"
+    rows = res["kernels"]
+    assert len(rows) == 21 + len(GV.VARIANTS) + len(PB.NAMES)
+    assert {"fr_mul", "fr_sqr", "fr_butterfly", "jac_madd", "jac_add",
+            "jac_double", "to_affine", "sum_sets (40 sets)", "gather_rows",
+            "fused_scan", "madd_scan", "row_offsets", "window_fold",
+            "ntt_local", "ntt_local (wide)", "affine_scan_reduce",
+            "affine_scan_apply", "quotient scan"} <= set(rows)
+    assert all(r["max_abs_err"] == 0 and r["bound_ms"] > 0
+               for r in rows.values() if "max_abs_err" in r)
+
+
+# -- msmtime, the device rule -------------------------------------------------
+
+def test_msmtime_gives_one_point():
+    res = msmtime.main(["--device", "cpu", "--n", "256", "--configs",
+                        "256:4;256:6:8", "--reps", "1"])
+    assert res["same_point"] and res["device"] == "cpu"
+    assert [(r["chunk"], r["c"], r["seq"]) for r in res["configs"]] == \
+        [(256, 4, 16), (256, 6, 8)]
+    assert "POLYMATH_MSM_C" not in os.environ
+
+
+def test_msmtime_raises_on_differing_points(monkeypatch):
+    monkeypatch.setattr(msmtime, "fixed_base_mul", lambda sc: sc.T)
+    monkeypatch.setattr(M, "msm_device",
+                        lambda *a, **k: os.environ["POLYMATH_MSM_C"])
+    with pytest.raises(AssertionError, match="differs"):
+        msmtime.main(["--device", "cpu", "--n", "4", "--configs",
+                      "4:4;4:5", "--reps", "1"])
+
+
 @pytest.mark.parametrize("tool", [PB, GV, kernel_metrics, fusedprof,
-                                  productprobe],
+                                  productprobe, kernel_table],
                          ids=["primbench", "pgather_variants",
-                              "kernel_metrics", "fusedprof", "productprobe"])
+                              "kernel_metrics", "fusedprof", "productprobe",
+                              "kernel_table"])
 def test_tools_need_a_card_or_an_explicit_cpu(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -3,9 +3,9 @@ the plain versions of polymath_tpu_torch.ops.cuda_scan.madd_scan and
 ops.cuda_tree (row_offsets, window_fold, sum_sets).
 
 The tree's inputs are points k G with small seeded k (numpy;
-chip_smoke.tree_case, which the card's tests use too), so the hostmath
-oracle is (sum of k) G.  Row totals hold an identity, a P + P pair and a
-P + (-P) pair; thresholds hold a P + P and a P + (-P) with their row
+tests/torch_cases.py:tree_case, which the card's tests use too), so the
+hostmath oracle is (sum of k) G.  Row totals hold an identity, a P + P
+pair and a P + (-P) pair; thresholds hold a P + P and a P + (-P) with their row
 offset, and some counts of 0.  The Jacobian inputs carry Z != 1.  The tree
 is held, as affine points, against the reference's
 curve_jax.prefix_scan_jac_tree, select_point and tree_sum_jac run eagerly,
@@ -14,12 +14,13 @@ for word against the per-step jac_madd loop it replaces and against the
 fused scan (tests/test_torch_scan.py holds both against the reference's
 eager madd scan).
 
-The sum of sets (chip_smoke.sum_sets_case: an identity set, P + P and
-P + (-P) planted where the serial sum and the kernel's first level meet
-them, a window of one repeated point) is held against the hostmath sum,
-and the kernel body of csrc/tree.cu's g1_sum_sets_kernel, built with g++
-and run under a host emulation of a CUDA block (as tests/test_torch_poly.py
-runs poly.cu's), against the plain version, as affine points.
+The sum of sets (polymath_tpu_torch.tools.cases.sum_sets_case: an
+identity set, P + P and P + (-P) planted where the serial sum and the
+kernel's first level meet them, a window of one repeated point) is held
+against the hostmath sum, and the kernel body of csrc/tree.cu's
+g1_sum_sets_kernel, built with g++ and run under a host emulation of a
+CUDA block (as tests/test_torch_poly.py runs poly.cu's), against the plain
+version, as affine points.
 """
 
 import shutil
@@ -30,12 +31,13 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import (host_point, jac_words, sum_sets_case,
-                        sum_sets_inputs, tree_case)
 from polymath_tpu.ops import curve_jax as CJ
 from polymath_tpu_torch.ops import _build, cuda_curve, cuda_scan, cuda_tree
 from polymath_tpu_torch.ops import curve as C
 from polymath_tpu_torch.ops import msm as M
+from polymath_tpu_torch.tools.cases import (host_point, jac_words,
+                                            sum_sets_case, sum_sets_inputs)
+from torch_cases import tree_case
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -299,7 +301,7 @@ def test_sum_sets_kernel_body_matches_plain_version(tree_harness, k):
 
 
 def test_sum_sets_case_plants():
-    """The planted windows of chip_smoke.sum_sets_case at k = 40 (the
+    """The planted windows of cases.sum_sets_case at k = 40 (the
     kernel's first level pairs set t with set t + 32)."""
     ks = sum_sets_case(40, 20, 1)
     assert ks[0, 0] == 0
